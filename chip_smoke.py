@@ -8,13 +8,21 @@ Drives the port's main path on one CUDA card and checks every byte:
   2. build: the CUDA kernels from `src/repro_torch/csrc/`, compiled by
      nvcc into `build/repro_torch/` at first use;
   3. kernels: each kernel against its plain PyTorch version on the card at
-     the main path's shapes (byte equality), with its median time over
-     CUDA events, the plain version's time and the bound;
-  4. main path: UniLRC 180-of-210 (alpha=2, z=10) on 10 clusters x 24
+     the main path's shapes (byte equality for the coding kernels; 2e-2 in
+     bf16 and 2e-5 / 1e-4 in fp32 for attention), with its median time
+     over CUDA events, the plain version's time, the bound and, for
+     attention, PyTorch's `scaled_dot_product_attention` as a yardstick;
+  4. stripe path: UniLRC 180-of-210 (alpha=2, z=10) on 10 clusters x 24
      nodes, 1 MiB blocks, `TorchBackend("cuda")`: a 4 GiB streamed write
      in windows of 8 stripes, a full read, one node lost (degraded read,
      recovery, rebuild), one cluster lost (21 erasures per stripe) and a
      few delta-parity updates; launch bounds asserted;
+  6. serve path: llama3.2-3b at full width (random weights from a seed)
+     saved as a 180-of-210 checkpoint through `CheckpointManager`, one
+     node lost, restored degraded (zero cross-cluster bytes, every tensor
+     byte-identical), rebuilt, and served: 8 requests of 2048 prompt + 32
+     generated tokens in batches of 4, every prefill attention layer
+     through the flash kernel; prefill + decode checked against prefill;
   5. a JSON line of per-kernel numbers, the card line, and the result
      line `{"ok": true, "device": {...}}` last.
 
@@ -25,6 +33,7 @@ Run from the root of the repo:  python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import pathlib
@@ -37,6 +46,8 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8 tensor-core rate
+BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core rate
+FP32_OPS_PER_S = 67e12             # H100 SXM fp32 rate outside tensor cores
 GIB = 1 << 30
 MIB = 1 << 20
 
@@ -78,9 +89,10 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: int, ops: int = 0) -> tuple[float, str]:
+def bound_ms(nbytes: int, ops: int = 0,
+             ops_per_s: float = INT8_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT8_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
@@ -243,6 +255,220 @@ def main_path(backend, BS: int, payload, rng) -> None:
     phase("update check", stripes=len({s for s, _ in touched}), ok=True)
 
 
+def serve_path(seed: int) -> dict:
+    """The serving path: llama3.2-3b at full width, checkpointed as UniLRC
+    180-of-210 stripes, restored degraded after a node loss, rebuilt and
+    served. Checks every restored byte, the restore's locality, the flash
+    launches and the logits; exits on the first failed check. Returns the
+    flash kernel's launches and plain calls on the serve run."""
+    import torch
+
+    from repro_torch.ckpt import BlockStore, CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_unilrc
+    from repro_torch.io import TorchBackend
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.kernels import gf_bitmatmul as gfk
+    from repro_torch.kernels import xor_reduce as xrk
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import (forward, init_params, layers,
+                                    pad_cache_to, params_from_jax,
+                                    params_to_tree)
+    from repro_torch.topo import Topology
+
+    dev = torch.device("cuda")
+    cfg = get_config("llama3.2-3b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    model = init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in model.parameters())
+    phase("serve init", arch=cfg.name, layers=cfg.num_layers,
+          d_model=cfg.d_model, q_heads=cfg.num_heads_padded,
+          kv_heads=cfg.num_kv_heads_padded, d_ff=cfg.d_ff,
+          vocab=cfg.vocab_size, params=nparams,
+          GB=f"{nparams * 2 / 1e9:.3f}",
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    check(nparams == 3_388_910_592, f"{nparams} parameters")
+
+    # 6.1 save: the weights as a 180-of-210 checkpoint, 1 MiB blocks
+    store = BlockStore(Topology(num_clusters=10, nodes_per_cluster=24))
+    mgr = CheckpointManager(store, make_unilrc(2, 10), block_size=MIB,
+                            backend=TorchBackend("cuda"))
+    tree = params_to_tree(model)
+    del model
+    gfk.reset_counts()
+    xrk.reset_counts()
+    t0 = time.perf_counter()
+    nstripes = mgr.save(tree, step=0)
+    save_s = time.perf_counter() - t0
+    ckpt_bytes = 2 * nparams                       # every leaf is bf16
+    phase("ckpt save", stripes=nstripes, bytes=ckpt_bytes,
+          seconds=f"{save_s:.3f}", GiB_s=f"{ckpt_bytes / GIB / save_s:.3f}",
+          gf_launches=gfk.launches, xor_launches=xrk.launches)
+    check(nstripes == 36, f"{nstripes} stripes")
+    check(sum(m.nbytes for m in mgr.stripes_of(0)) == ckpt_bytes,
+          "checkpoint bytes")
+
+    # 6.2 one node lost: degraded restore, cluster-local
+    node = store.node_of(0, 0)
+    store.fail_node(node)
+    gfk.reset_counts()
+    xrk.reset_counts()
+    t0 = time.perf_counter()
+    restored, report = mgr.restore()
+    restore_s = time.perf_counter() - t0
+    phase("ckpt restore", degraded_blocks=report.degraded_blocks,
+          total_blocks=report.total_blocks_read,
+          cross_cluster_bytes=report.cross_cluster_bytes,
+          inner_cluster_bytes=report.inner_cluster_bytes,
+          seconds=f"{restore_s:.3f}",
+          GiB_s=f"{ckpt_bytes / GIB / restore_s:.3f}",
+          gf_launches=gfk.launches, xor_launches=xrk.launches)
+    check(report.degraded_blocks > 0, "restore was not degraded")
+    check(report.cross_cluster_bytes == 0, "restore crossed clusters")
+
+    # 6.3 every restored tensor is the saved tensor, byte for byte
+    def leaves(node):
+        if isinstance(node, dict):
+            for key in sorted(node):
+                yield from leaves(node[key])
+        elif isinstance(node, (tuple, list)):
+            for item in node:
+                yield from leaves(item)
+        else:
+            yield node
+
+    nleaves = 0
+    for saved, back in zip(leaves(tree), leaves(restored), strict=True):
+        check(saved.shape == back.shape and saved.dtype == back.dtype,
+              f"restored leaf {nleaves}: {back.shape} {back.dtype}")
+        check(torch.equal(saved.view(torch.int16),
+                          back.to(dev).view(torch.int16)),
+              f"restored leaf {nleaves} differs")
+        nleaves += 1
+    phase("ckpt bytes", leaves=nleaves, identical=True)
+    del tree
+    rebuilt = mgr.reconstruct_failures()
+    check(not store.failed_nodes and rebuilt > 0, f"rebuilt {rebuilt}")
+    model = params_from_jax(cfg, restored, dev)
+    del restored, mgr, store
+    gc.collect()
+
+    # 6.4 serve: 8 requests, batches of 4, 2048 prompt + 32 generated
+    B, P, G, REQ = 4, 2048, 32, 8
+    fak.reset_counts()
+    torch.cuda.synchronize()
+    out = serve(cfg, model, batch=B, requests=REQ, prompt_len=P, gen=G,
+                seed=seed, device=dev)
+    flash = {"launches": fak.launches, "plain_calls": fak.plain_calls}
+    nbatches = math.ceil(REQ / B)
+    phase("serve", requests=REQ, batch=B, prompt=P, gen=G,
+          seconds=f"{out['seconds']:.3f}",
+          tokens_s=f"{out['served_tokens'] / out['seconds']:.1f}",
+          generated_tokens_s=f"{REQ * G / out['seconds']:.1f}",
+          prefill_ms=",".join(f"{t * 1e3:.2f}" for t in out["prefill_s"]),
+          decode_ms_per_token=",".join(f"{t * 1e3 / (G - 1):.3f}"
+                                       for t in out["decode_s"]),
+          flash=json.dumps(flash))
+    check(flash["launches"] == nbatches * cfg.num_layers,
+          f"flash launches {flash['launches']} != "
+          f"{nbatches} x {cfg.num_layers}")
+    check(flash["plain_calls"] == 0, "flash plain version on the serve path")
+    for toks in out["tokens"]:
+        check(tuple(toks.shape) == (B, G), f"tokens {tuple(toks.shape)}")
+        check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              "token out of the vocabulary")
+
+    # 6.5 prefill of S-1 tokens + one decode step == prefill of S at the
+    # last position, within the reference's bound (tests/test_archs.py)
+    rng = torch.Generator(device=dev)
+    rng.manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=rng,
+                            device=dev)
+    full, _, _ = forward(model, prompts, mode="prefill")
+    want = full[:, -1].float()
+    del full
+    _, cache, _ = forward(model, prompts[:, :P - 1], mode="prefill")
+    NSTEP = 4
+    cache = pad_cache_to(cache, cfg, P + 2 * NSTEP)
+    step, _, _ = forward(model, prompts[:, P - 1:], mode="decode",
+                         cache=cache, pos=P - 1)
+    got = step[:, 0].float()
+    finite = bool(torch.isfinite(want).all() and torch.isfinite(got).all())
+    scale = want.abs().max().item()
+    rel = (got - want).abs().max().item() / scale
+    phase("serve check", max_abs_logit=f"{scale:.4f}",
+          decode_vs_prefill=f"{rel:.5f}", bound=0.05, finite=finite)
+    check(finite, "non-finite logits")
+    check(rel < 0.05, f"decode vs prefill {rel:.4f} of max |logit|")
+
+    # 6.6 where a decode step's time goes: host clock over NSTEP steps,
+    # then the device time of NSTEP more from torch.profiler
+    tok = step[:, 0].argmax(dim=-1)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(NSTEP):
+        forward(model, tok, mode="decode", cache=cache, pos=P + i)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / NSTEP
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(NSTEP, 2 * NSTEP):
+                forward(model, tok, mode="decode", cache=cache, pos=P + i)
+            torch.cuda.synchronize()
+        # device-side events only (kernels, copies), as the profiler's own
+        # table totals them: a CPU op's self device time repeats them
+        ops = [(e.key, e.self_device_time_total / 1e3 / NSTEP, e.count)
+               for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU]
+        device_ms = sum(ms for _, ms, _ in ops)
+        top = sorted(ops, key=lambda o: -o[1])[:4]
+        phase("decode split", step_ms=f"{step_ms:.3f}",
+              device_ms=f"{device_ms:.3f}",
+              device_share=f"{device_ms / step_ms:.4f}",
+              device_ops_per_step=sum(c for _, _, c in ops) // NSTEP,
+              top=json.dumps([(k[:40], round(ms, 4)) for k, ms, _ in top]))
+    except RuntimeError as err:         # the profiler is untried there
+        phase("decode split", step_ms=f"{step_ms:.3f}",
+              device_ms="not measured", profiler_error=repr(str(err)[:200]))
+    del cache
+
+    # 6.7 the flash kernel's share of one prefill, from CUDA events
+    events = []
+    kernel_flash = layers.flash_attention
+
+    def timed_flash(*args, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        y = kernel_flash(*args, **kw)
+        e1.record()
+        events.append((e0, e1))
+        return y
+
+    layers.flash_attention = timed_flash
+    try:
+        p0 = torch.cuda.Event(enable_timing=True)
+        p1 = torch.cuda.Event(enable_timing=True)
+        p0.record()
+        forward(model, prompts, mode="prefill")
+        p1.record()
+        p1.synchronize()
+    finally:
+        layers.flash_attention = kernel_flash
+    prefill_ms = p0.elapsed_time(p1)
+    flash_ms = sum(a.elapsed_time(b) for a, b in events)
+    phase("prefill split", prefill_ms=f"{prefill_ms:.3f}",
+          flash_ms=f"{flash_ms:.3f}", flash_calls=len(events),
+          flash_share=f"{flash_ms / prefill_ms:.4f}")
+    return flash
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {__file__}: run from the repo root")
@@ -251,6 +477,9 @@ def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this test needs a card")
+    # fp32 products in full fp32 (the plain versions' reference arithmetic)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # 1. environment ---------------------------------------------------------
     smi = shutil.which("nvidia-smi")
@@ -276,6 +505,7 @@ def main() -> None:
     from repro_torch.core import decode_plan_cached, make_unilrc
     from repro_torch.core.gf import gf_bit_columns
     from repro_torch.io import TorchBackend
+    from repro_torch.kernels import flash_attention as fak
     from repro_torch.kernels import gf_bitmatmul as gfk
     from repro_torch.kernels import xor_reduce as xrk
 
@@ -336,6 +566,61 @@ def main() -> None:
         return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
                     bound_by=by)
 
+    def flash_case(B, Hq, Hkv, Sq, Skv, d, dtype, causal, window=0,
+                   reps=10, plain_reps=2):
+        q, k, v = (torch.randn(sh, generator=gen, device=dev).to(dtype)
+                   for sh in ((B, Hq, Sq, d), (B, Hkv, Skv, d),
+                              (B, Hkv, Skv, d)))
+
+        def kernel():
+            return fak.flash_attention_fwd(q, k, v, causal=causal,
+                                           window=window)
+
+        def plain():
+            return fak.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                                 window=window)
+        out, lse = kernel()
+        want, want_lse = plain()
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        dead = torch.isneginf(lse) & torch.isneginf(want_lse)
+        lse_err = torch.where(dead, 0.0, (lse - want_lse).abs()).max().item()
+        bf16 = dtype == torch.bfloat16
+        tol, lse_tol = (2e-2, 2e-2) if bf16 else (2e-5, 1e-4)
+        shape = (f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} d={d} "
+                 f"{dtype} causal={causal} window={window}")
+        check(err <= tol and lse_err <= lse_tol,
+              f"flash_attention != plain at {shape}: out {err}, lse {lse_err}")
+        mask = None
+        if window:
+            qp = torch.arange(Sq, device=dev)[:, None]
+            kp = torch.arange(Skv, device=dev)[None]
+            mask = qp - kp < window
+            if causal:
+                mask &= qp >= kp
+
+        def library():      # timed as a yardstick only, never on the path
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=True)
+        ms = time_ms(kernel, reps)
+        pms = time_ms(plain, plain_reps)
+        lms = time_ms(library, reps)
+        ops = fak.bound_flops(B, Hq, Sq, Skv, d, d, causal=causal,
+                              window=window)
+        b, by = bound_ms(
+            fak.bound_bytes(B, Hq, Hkv, Sq, Skv, d, d, q.element_size()),
+            ops, BF16_OPS_PER_S if bf16 else FP32_OPS_PER_S)
+        phase("kernel flash_attention", B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Skv=Skv,
+              d=d, dtype=str(dtype).replace("torch.", ""), causal=causal,
+              window=window, max_abs_err=f"{err:.3e}",
+              lse_max_abs_err=f"{lse_err:.3e}", ms=f"{ms:.4f}",
+              plain_ms=f"{pms:.3f}", library_ms=f"{lms:.4f}",
+              bound_ms=f"{b:.4f}", bound_by=by,
+              TFLOP_s=f"{ops / (ms / 1e3) / 1e12:.1f}")
+        return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
+                    bound_by=by, library_ms=lms)
+
     rng = np.random.default_rng(2505)
     gf_main = gf_case(code.A, S_WIN, BS)                       # encode
     gf_case(cluster_plan.M, S_WIN, BS)                         # decode
@@ -347,6 +632,13 @@ def main() -> None:
     xor_main = xor_case(23, 20, BS)                            # recovery
     xor_case(1, 2, 3001)
     xor_case(4, 29, 4097, offset=3)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    flash_main = flash_case(4, 32, 8, 2048, 2048, 128, bf16, True)  # prefill
+    flash_case(4, 32, 8, 2048, 2048, 128, bf16, True, window=512)
+    flash_case(1, 32, 8, 1024, 2048, 128, bf16, False)     # Sq != Skv
+    flash_case(4, 32, 8, 1000, 1000, 128, bf16, True)      # ragged
+    flash_case(2, 16, 4, 1024, 1024, 64, bf16, True)       # d = 64
+    flash_case(1, 8, 2, 1024, 1024, 128, fp32, True, reps=3)
 
     # 4. main path ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -362,6 +654,11 @@ def main() -> None:
           plain_calls=json.dumps(plain))
     check(all(v > 0 for v in launches.values()), "a kernel never launched")
     check(not any(plain.values()), "a plain version ran on the main path")
+    del payload
+    gc.collect()
+
+    # 6. serve path -------------------------------------------------------------
+    flash = serve_path(2505)
 
     # 5. results ----------------------------------------------------------------
     src = "src/repro_torch/csrc/coding_kernels.cu"
@@ -372,6 +669,10 @@ def main() -> None:
         dict(name="xor_reduce", route="cuda", source=src,
              replaces="src/repro/kernels/xor_reduce.py:54",
              launches=launches["xor_reduce"], library_ms=None, **xor_main),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:116",
+             launches=flash["launches"], **flash_main),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line)

@@ -1,8 +1,9 @@
-"""Build and load the CUDA coding kernels (`repro_torch/csrc/*.cu`).
+"""Build and load the port's CUDA kernels (`repro_torch/csrc/*.cu`).
 
-The sources are compiled by `nvcc` for `sm_90a` into one shared library
-with a plain C interface and loaded with `ctypes` — no PyTorch headers, so
-the build takes seconds. The library lands in `build/repro_torch/` at the
+Each source is compiled by its own `nvcc` for `sm_90a`, all started
+together, and the objects are linked into one shared library with a plain
+C interface, loaded with `ctypes` — no PyTorch headers, so the build takes
+seconds. The library lands in `build/repro_torch/` at the
 root of the checkout, named by a hash of the sources and flags, so an edit
 rebuilds and an unchanged tree reuses the file. Nothing here runs at
 import time: the first CUDA launch calls `library()`.
@@ -22,7 +23,7 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LOCK = threading.Lock()
 
 #: Seconds the last `library()` call spent compiling (0.0 when the library
@@ -60,21 +61,28 @@ def _compile(out: pathlib.Path) -> None:
     global build_seconds, build_log
     out.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())],
-            capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)        # atomic: concurrent builds agree
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [pathlib.Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(_sources(), objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        for src, proc, log in zip(_sources(), procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} "
+                                   f"({proc.returncode}):\n{log}")
+        lib = pathlib.Path(tmp) / out.name
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:1], "-shared", "-o",
+                               str(lib), *map(str, objs)],
+                              capture_output=True, text=True, check=False)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        os.replace(lib, out)        # atomic: concurrent builds agree
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    build_log = "".join(logs)
 
 
 def _load(path: str) -> ctypes.CDLL:
@@ -84,6 +92,10 @@ def _load(path: str) -> ctypes.CDLL:
     lib.repro_xor_fold.restype = ctypes.c_int
     lib.repro_gf_matmul.argtypes = [p, p, p, i64, i64, i64, i64, p]
     lib.repro_gf_matmul.restype = ctypes.c_int
+    lib.repro_flash_fwd.argtypes = [p, p, p, p, p, i64, i64, i64, i64, i64,
+                                    i64, i64, ctypes.c_int, ctypes.c_int,
+                                    i64, ctypes.c_float, p]
+    lib.repro_flash_fwd.restype = ctypes.c_int
     lib.repro_error_string.argtypes = [ctypes.c_int]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib

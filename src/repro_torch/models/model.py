@@ -1,0 +1,296 @@
+"""Model assembly of the port (port of `repro.models.model`), for the
+`attn` block kind.
+
+`Transformer` is an `nn.Module` holding one `Block` per layer. The
+reference keeps each segment's layers stacked along a leading `count` axis
+and scans over them; the port keeps a `ModuleList` and loops, and
+`params_to_tree` / `params_from_jax` convert between the two layouts, so a
+parameter tree (and so a checkpoint) has the same bytes in both packages.
+Caches keep the reference's nested layout:
+`((({"k": (count, B, Hkv, S, hd), "v": ...},) per block) per segment)`.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+from . import layers as L
+from .config import ModelConfig
+
+_PORTED_KINDS = ("attn",)
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """The device an entry point runs on. CUDA is the default everywhere;
+    asking for it without a card raises rather than falling back to the
+    CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is present; pass device='cpu' to "
+                           "run the plain versions on the host")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"the port runs on cuda or cpu, got {device}")
+    return device
+
+
+def _check_kinds(cfg: ModelConfig) -> None:
+    for seg in cfg.segments:
+        if seg.blocks != ("attn",):
+            raise NotImplementedError(
+                f"{cfg.name}: superblock {seg.blocks} is not ported yet; the "
+                f"port runs segments of single {_PORTED_KINDS} blocks "
+                f"(ROADMAP A9)")
+
+
+def _norm_scale(cfg: ModelConfig, device) -> nn.Parameter:
+    return nn.Parameter(torch.ones((cfg.d_model,), dtype=torch.bfloat16,
+                                   device=device), requires_grad=False)
+
+
+class Block(nn.Module):
+    """One pre-norm residual `attn` block: attention then SwiGLU."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator | None,
+                 device: torch.device):
+        super().__init__()
+        self.norm1 = _norm_scale(cfg, device)
+        self.attn = L.Attention(cfg, gen, device)
+        self.norm2 = _norm_scale(cfg, device)
+        self.mlp = L.SwiGLU(cfg.d_model, cfg.d_ff, gen, device)
+
+    def forward(self, x, cfg: ModelConfig, mode: str, cache, pos):
+        h, new_cache = L.attention_block(
+            self.attn, L.rms_norm(x, self.norm1, cfg.rms_eps), cfg, mode,
+            cache, pos)
+        x = x + h
+        x = x + self.mlp(L.rms_norm(x, self.norm2, cfg.rms_eps))
+        return x, new_cache
+
+
+class Transformer(nn.Module):
+    """Token embedding, `cfg.num_layers` blocks, final norm, (tied)
+    unembedding. Weights only: the port serves, it does not train yet."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None,
+                 device: str | torch.device = "cuda"):
+        super().__init__()
+        _check_kinds(cfg)
+        if not cfg.embed_inputs:
+            raise NotImplementedError(
+                f"{cfg.name}: embedding-free inputs are not ported yet "
+                f"(ROADMAP A9)")
+        device = torch.device(device)
+        if device.type != "meta":           # meta: shapes only, no data
+            device = resolve_device(device)
+        if gen is not None and gen.device.type != device.type:
+            raise ValueError(f"generator on {gen.device}, model on {device}")
+        self.cfg = cfg
+        self.blocks = nn.ModuleList(
+            Block(cfg, gen, device)
+            for seg in cfg.segments for _ in range(seg.count))
+        self.final_norm = _norm_scale(cfg, device)
+        shape = (cfg.vocab_size, cfg.d_model)
+        self.embed = nn.Parameter(
+            L._normal(gen, shape, cfg.d_model ** -0.5) if gen is not None
+            else torch.empty(shape, dtype=torch.bfloat16, device=device),
+            requires_grad=False)
+        if not cfg.tie_embeddings:
+            shape = (cfg.d_model, cfg.vocab_size)
+            self.unembed = nn.Parameter(
+                L._normal(gen, shape, cfg.d_model ** -0.5) if gen is not None
+                else torch.empty(shape, dtype=torch.bfloat16, device=device),
+                requires_grad=False)
+
+    def layers_of(self):
+        """(segment index, layer index within it, block) in order."""
+        i = 0
+        for si, seg in enumerate(self.cfg.segments):
+            for li in range(seg.count):
+                yield si, li, self.blocks[i]
+                i += 1
+
+    @torch.inference_mode()
+    def forward(self, inputs: torch.Tensor, *, mode: str = "train",
+                cache=None, pos: int | None = None):
+        """inputs: (B, S) token ids. Returns (logits, new_cache, aux)."""
+        cfg = self.cfg
+        if mode not in ("train", "prefill", "decode"):
+            raise ValueError(f"mode {mode!r}")
+        if mode == "decode" and (cache is None or pos is None):
+            raise ValueError("decode needs a cache and a position")
+        x = self.embed[inputs.long()]
+        per_layer: list[list[dict]] = [[] for _ in cfg.segments]
+        for si, li, block in self.layers_of():
+            lc = None
+            if cache is not None:
+                lc = {name: t[li] for name, t in cache[si][0].items()}
+            x, nc = block(x, cfg, mode, lc, pos)
+            per_layer[si].append(nc)
+        x = L.rms_norm(x, self.final_norm, cfg.rms_eps)
+        if cfg.tie_embeddings:
+            logits = x @ self.embed.t()
+        else:
+            logits = x @ self.unembed
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if mode == "train":
+            return logits, None, aux
+        if mode == "decode":             # written in place: same tensors
+            return logits, cache, aux
+        new_cache = tuple(
+            ({name: torch.stack([c[name] for c in layers])
+              for name in ("k", "v")},)
+            for layers in per_layer)
+        return logits, new_cache, aux
+
+
+def forward(model: Transformer, inputs: torch.Tensor, *,
+            mode: str = "train", cache=None, pos: int | None = None):
+    """inputs: (B, S) token ids. Returns (logits, new_cache, aux_loss)."""
+    return model(inputs, mode=mode, cache=cache, pos=pos)
+
+
+# ---------------------------------------------------------------------------
+# Init and caches
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
+                device: str | torch.device = "cuda") -> Transformer:
+    """A model with random weights drawn from `generator` (on `device`; a
+    fresh generator seeded 0 when None). Same distributions as the
+    reference's `init_params`; the numbers differ, since the two packages'
+    generators differ: to carry the reference's weights across, use
+    `params_from_jax`."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(0)
+    return Transformer(cfg, generator, device)
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree of `init_params(cfg)` as meta tensors: shapes
+    and dtypes without allocating (a full-width model on any host)."""
+    return params_to_tree(Transformer(cfg, None, "meta"))
+
+
+def init_cache(cfg: ModelConfig, B: int, S_max: int, *,
+               device: str | torch.device = "cuda"):
+    """Zeroed cache in the nested segment layout."""
+    _check_kinds(cfg)
+    device = resolve_device(device)
+    hd, hkv = cfg.resolved_head_dim, cfg.num_kv_heads_padded
+    return tuple(
+        tuple({name: torch.zeros((seg.count, B, hkv, S_max, hd),
+                                 dtype=torch.bfloat16, device=device)
+               for name in ("k", "v")} for _ in seg.blocks)
+        for seg in cfg.segments)
+
+
+def pad_cache_to(cache, cfg: ModelConfig, S_max: int):
+    """Right-pad a prefill cache's sequence axis to S_max so decode can
+    write into it (full-attention k/v caches)."""
+    def pad(leaf: torch.Tensor) -> torch.Tensor:
+        s = leaf.shape[3]
+        if cfg.window and s <= cfg.window:
+            return leaf
+        if s < S_max:
+            return torch.nn.functional.pad(leaf, (0, 0, 0, S_max - s))
+        return leaf
+    return tuple(tuple({name: pad(t) for name, t in block.items()}
+                       for block in seg) for seg in cache)
+
+
+# ---------------------------------------------------------------------------
+# The reference's parameter tree
+# ---------------------------------------------------------------------------
+
+_ATTN = ("wq", "wk", "wv", "wo")
+_BIAS = ("bq", "bk", "bv")
+_MLP = ("w_gate", "w_up", "w_down")
+
+
+def _block_names(cfg: ModelConfig):
+    """(tree path within a block, module attribute path) of every leaf."""
+    attn = _ATTN + (_BIAS if cfg.qkv_bias else ())
+    return ([(("attn", n), ("attn", n)) for n in attn]
+            + [(("mlp", n), ("mlp", n)) for n in _MLP]
+            + [(("norm1",), ("norm1",)), (("norm2",), ("norm2",))])
+
+
+def params_to_tree(model: Transformer) -> dict:
+    """The reference's layout: `{"segments": ((block,),) per segment,
+    "final_norm", "embed"[, "unembed"]}` with each block leaf stacked over
+    the segment's layers. Tensors stay on the model's device."""
+    cfg = model.cfg
+    segments = []
+    for si, seg in enumerate(cfg.segments):
+        blocks = [b for s, _, b in model.layers_of() if s == si]
+        tree: dict[str, Any] = {}
+        for path, attr in _block_names(cfg):
+            leaf = torch.stack([_get(b, attr) for b in blocks])
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = leaf
+        segments.append((tree,))
+    out = {"segments": tuple(segments), "final_norm": model.final_norm.data,
+           "embed": model.embed.data}
+    if not cfg.tie_embeddings:
+        out["unembed"] = model.unembed.data
+    return out
+
+
+def _get(module: nn.Module, attr: tuple[str, ...]) -> torch.Tensor:
+    obj: Any = module
+    for a in attr:
+        obj = getattr(obj, a)
+    return obj.data
+
+
+def _as_tensor(leaf) -> torch.Tensor:
+    """A tree leaf as a CPU or device tensor: numpy uint16 leaves are bf16
+    bit patterns (numpy's bf16 does not go through `torch.from_numpy`)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    arr = np.ascontiguousarray(leaf)
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    if arr.dtype == np.uint16 or arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def params_from_jax(cfg: ModelConfig, tree: dict,
+                    device: str | torch.device = "cuda") -> Transformer:
+    """A model holding the weights of a parameter tree in the reference's
+    layout (`repro.models.init_params`, or a restored checkpoint). Leaves
+    may be numpy arrays (bf16 given as fp32 values or uint16 bit views)
+    or tensors; each is cast to the parameter's dtype."""
+    model = Transformer(cfg, None, device)
+    blocks = {(si, li): b for si, li, b in model.layers_of()}
+    for si, seg in enumerate(cfg.segments):
+        node = tree["segments"][si][0]
+        for path, attr in _block_names(cfg):
+            leaf = node
+            for key in path:
+                leaf = leaf[key]
+            stacked = _as_tensor(leaf)
+            for li in range(seg.count):
+                dst = _get(blocks[(si, li)], attr)
+                _copy(dst, stacked[li], path)
+    _copy(model.final_norm.data, _as_tensor(tree["final_norm"]),
+          ("final_norm",))
+    _copy(model.embed.data, _as_tensor(tree["embed"]), ("embed",))
+    if not cfg.tie_embeddings:
+        _copy(model.unembed.data, _as_tensor(tree["unembed"]), ("unembed",))
+    return model
+
+
+def _copy(dst: torch.Tensor, src: torch.Tensor, path) -> None:
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"{'/'.join(path)}: shape {tuple(src.shape)}, "
+                         f"model wants {tuple(dst.shape)}")
+    dst.copy_(src.to(dst.dtype))

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card. Byte equality: GF(2^8) coding is exact.
+card. Byte equality for the coding kernels (GF(2^8) coding is exact);
+attention within 2e-2 in bf16 and 2e-5 (out) / 1e-4 (lse) in fp32.
 
 Every test here is marked `cuda` and skips without a CUDA device. The file
 imports nothing of the reference package, so it runs on a machine without
@@ -12,8 +13,12 @@ import torch
 from repro_torch.core import make_unilrc
 from repro_torch.core.codec import decode_plan
 from repro_torch.core.gf import gf_bit_columns
+from repro_torch.kernels import flash_attention as fak
 from repro_torch.kernels import gf_bitmatmul as gfk
 from repro_torch.kernels import xor_reduce as xrk
+from repro_torch.models import (ModelConfig, forward, init_params,
+                                pad_cache_to, params_from_jax, params_to_tree,
+                                uniform_segments)
 
 pytestmark = pytest.mark.cuda
 
@@ -71,3 +76,77 @@ def test_wrappers_count_launches_only_on_the_card(card):
     gfk.gf_bitmatmul(torch.ones((1, 3, 8), dtype=torch.uint8, device=card), x)
     assert (xrk.launches, xrk.plain_calls) == (1, 0)
     assert (gfk.launches, gfk.plain_calls) == (1, 0)
+
+
+# causal, window, B, Hq, Hkv, Sq, Skv, d, dtype
+FLASH_CASES = [
+    (True, 0, 1, 4, 1, 1000, 1000, 128, torch.bfloat16),   # ragged, G=4
+    (True, 512, 2, 8, 2, 2048, 2048, 128, torch.bfloat16),  # window
+    (False, 0, 1, 2, 2, 100, 333, 64, torch.bfloat16),     # Sq != Skv
+    (True, 0, 2, 8, 2, 1, 1, 128, torch.bfloat16),         # one token
+    (True, 0, 1, 2, 1, 256, 256, 128, torch.float32),
+    (True, 128, 1, 4, 2, 300, 300, 64, torch.float32),     # window, ragged
+]
+
+
+def _qkv(seed, B, Hq, Hkv, Sq, Skv, d, dtype):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=sh).astype(np.float32)).to(dtype)
+            for sh in ((B, Hq, Sq, d), (B, Hkv, Skv, d), (B, Hkv, Skv, d))]
+
+
+@pytest.mark.parametrize("causal,window,B,Hq,Hkv,Sq,Skv,d,dtype",
+                         FLASH_CASES)
+def test_flash_matches_plain(card, causal, window, B, Hq, Hkv, Sq, Skv, d,
+                             dtype):
+    q, k, v = (t.to(card) for t in _qkv(Sq, B, Hq, Hkv, Sq, Skv, d, dtype))
+    out, lse = fak.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    want, want_lse = fak.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                                   window=window)
+    torch.cuda.synchronize()
+    tol, lse_tol = (2e-2, 2e-2) if dtype == torch.bfloat16 else (2e-5, 1e-4)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    assert (out.float() - want.float()).abs().max().item() <= tol
+    assert (lse - want_lse).abs().max().item() <= lse_tol
+
+
+def test_flash_head_dim_outside_the_kernel_raises(card):
+    q, k, v = (t.to(card) for t in _qkv(0, 1, 2, 1, 64, 64, 96,
+                                        torch.bfloat16))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fak.flash_attention_fwd(q, k, v)
+
+
+def test_flash_counts_launches_only_on_the_card(card):
+    fak.reset_counts()
+    q, k, v = (t.to(card) for t in _qkv(0, 1, 2, 1, 64, 64, 64,
+                                        torch.bfloat16))
+    fak.flash_attention_fwd(q, k, v)
+    assert (fak.launches, fak.plain_calls) == (1, 0)
+
+
+def test_smoke_model_on_the_card_matches_the_cpu(card):
+    """A 2-layer model with head dim 64 (ghost heads 6 -> 8) on the card
+    against the same weights on the CPU: logits within 5e-2 of max |logit|
+    (bf16 matmuls round in other places on the two devices)."""
+    cfg = ModelConfig(name="cuda-smoke", family="dense", d_model=384,
+                      num_heads=6, num_kv_heads=2, d_ff=512, vocab_size=512,
+                      segments=uniform_segments("attn", 2),
+                      rope_theta=10000.0, tie_embeddings=True, tp_pad_heads=4)
+    host = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    dev = params_from_jax(cfg, params_to_tree(host), card)
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 512, (2, 100)))
+    fak.reset_counts()
+    got, _, _ = forward(dev, tokens.to(card), mode="train")
+    assert (fak.launches, fak.plain_calls) == (2, 0)
+    want, _, _ = forward(host, tokens, mode="train")
+    scale = want.float().abs().max().item()
+    assert (got.cpu().float() - want.float()).abs().max().item() < 5e-2 * scale
+
+    _, cache, _ = forward(dev, tokens[:, :99].to(card), mode="prefill")
+    cache = pad_cache_to(cache, cfg, 104)
+    step, _, _ = forward(dev, tokens[:, 99:].to(card), mode="decode",
+                         cache=cache, pos=99)
+    assert (step[:, 0].cpu().float() - want[:, -1].float()).abs().max() \
+        .item() < 5e-2 * scale

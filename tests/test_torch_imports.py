@@ -8,9 +8,12 @@ import sys
 import pytest
 import torch
 
-from repro_torch.ckpt import BlockStore, StripeCodec
+from repro_torch.ckpt import BlockStore, CheckpointManager, StripeCodec
+from repro_torch.configs import get_config
 from repro_torch.core import make_unilrc
 from repro_torch.io import TorchBackend, resolve_backend
+from repro_torch.launch import serve
+from repro_torch.models import init_cache, init_params
 from repro_torch.topo import Topology
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
@@ -53,3 +56,18 @@ def test_default_backend_is_cuda_and_never_falls_back():
     assert TorchBackend("cpu").device.type == "cpu"
     with pytest.raises(ValueError):
         TorchBackend("meta")
+
+
+def test_model_and_server_default_to_cuda_and_never_fall_back():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    cfg = get_config("llama3.2-3b", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.run(["--arch", "llama3.2-3b", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CheckpointManager(BlockStore(Topology(4, 8)), make_unilrc(1, 4))
+    assert init_params(cfg, device="cpu").embed.device.type == "cpu"
