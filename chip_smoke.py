@@ -33,10 +33,12 @@ Run from the root of the repo:  python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import faulthandler
 import gc
 import json
 import math
 import pathlib
+import re
 import shutil
 import statistics
 import subprocess
@@ -94,6 +96,24 @@ def bound_ms(nbytes: int, ops: int = 0,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def ptxas_spills(log: str, kernel: str) -> dict[str, int]:
+    """Spill store + load bytes that `nvcc -Xptxas -v` reports for each
+    compiled function whose mangled name contains `kernel`."""
+    spills, name = {}, None
+    for line in log.splitlines():
+        props = re.search(r"Function properties for (\S+)", line)
+        if props:
+            name = props.group(1)
+            continue
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if found and name and kernel in name:
+            spills[name] = int(found.group(1)) + int(found.group(2))
+        if found:
+            name = None
+    return spills
 
 
 def main_path(backend, BS: int, payload, rng) -> None:
@@ -499,8 +519,15 @@ def main() -> None:
           nvcc_seconds=f"{_build.build_seconds:.2f}",
           library=_build.library_path().name)
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("registers", "spill", "warning",
+                                   "Function properties")):
             print("  ptxas:", line.strip())
+    spills = ptxas_spills(_build.build_log, "flash_fwd_sm90_kernel")
+    phase("ptxas flash_fwd_sm90_kernel", functions=len(spills),
+          spill_bytes=sum(spills.values()))
+    check(len(spills) == 2, f"ptxas reported {len(spills)} instantiations "
+          f"of flash_fwd_sm90_kernel, want 2 (d = 64, 128)")
+    check(not any(spills.values()), f"flash_fwd_sm90_kernel spills {spills}")
 
     from repro_torch.core import decode_plan_cached, make_unilrc
     from repro_torch.core.gf import gf_bit_columns
@@ -567,7 +594,7 @@ def main() -> None:
                     bound_by=by)
 
     def flash_case(B, Hq, Hkv, Sq, Skv, d, dtype, causal, window=0,
-                   reps=10, plain_reps=2):
+                   reps=30, plain_reps=2):
         q, k, v = (torch.randn(sh, generator=gen, device=dev).to(dtype)
                    for sh in ((B, Hq, Sq, d), (B, Hkv, Skv, d),
                               (B, Hkv, Skv, d)))
@@ -617,6 +644,7 @@ def main() -> None:
               lse_max_abs_err=f"{lse_err:.3e}", ms=f"{ms:.4f}",
               plain_ms=f"{pms:.3f}", library_ms=f"{lms:.4f}",
               bound_ms=f"{b:.4f}", bound_by=by,
+              bound_share=f"{b / ms:.4f}", vs_library=f"{ms / lms:.3f}",
               TFLOP_s=f"{ops / (ms / 1e3) / 1e12:.1f}")
         return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
                     bound_by=by, library_ms=lms)
@@ -633,12 +661,18 @@ def main() -> None:
     xor_case(1, 2, 3001)
     xor_case(4, 29, 4097, offset=3)
     bf16, fp32 = torch.bfloat16, torch.float32
+    # a broken mbarrier ring would hang the card (the kernel has no timeout
+    # of its own): end the process with a traceback instead of waiting
+    faulthandler.dump_traceback_later(300, exit=True)
     flash_main = flash_case(4, 32, 8, 2048, 2048, 128, bf16, True)  # prefill
+    flash_case(4, 32, 8, 2047, 2047, 128, bf16, True)      # tile edge - 1
+    flash_case(4, 32, 8, 2049, 2049, 128, bf16, True)      # tile edge + 1
     flash_case(4, 32, 8, 2048, 2048, 128, bf16, True, window=512)
     flash_case(1, 32, 8, 1024, 2048, 128, bf16, False)     # Sq != Skv
     flash_case(4, 32, 8, 1000, 1000, 128, bf16, True)      # ragged
     flash_case(2, 16, 4, 1024, 1024, 64, bf16, True)       # d = 64
-    flash_case(1, 8, 2, 1024, 1024, 128, fp32, True, reps=3)
+    flash_case(1, 8, 2, 1024, 1024, 128, fp32, True, reps=5)
+    faulthandler.cancel_dump_traceback_later()
 
     # 4. main path ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -669,8 +703,8 @@ def main() -> None:
         dict(name="xor_reduce", route="cuda", source=src,
              replaces="src/repro/kernels/xor_reduce.py:54",
              launches=launches["xor_reduce"], library_ms=None, **xor_main),
-        dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/csrc/flash_attention.cu",
+        dict(name="flash_attention", kernel="flash_fwd_sm90_kernel",
+             route="cuda", source="src/repro_torch/csrc/flash_fwd_sm90.cu",
              replaces="src/repro/kernels/flash_attention.py:116",
              launches=flash["launches"], **flash_main),
     ]

@@ -46,13 +46,16 @@ def _nvcc() -> str:
 
 
 def _sources() -> list[pathlib.Path]:
+    """The translation units: one nvcc each."""
     return sorted(CSRC.glob("*.cu"))
 
 
 def library_path() -> pathlib.Path:
+    """Named by a hash of the flags and of every file under `csrc/`
+    (headers included), so any edit there rebuilds."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
+    for src in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(str(src.relative_to(CSRC)).encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libreprocoding_{h.hexdigest()[:16]}.so"
 
@@ -92,10 +95,10 @@ def _load(path: str) -> ctypes.CDLL:
     lib.repro_xor_fold.restype = ctypes.c_int
     lib.repro_gf_matmul.argtypes = [p, p, p, i64, i64, i64, i64, p]
     lib.repro_gf_matmul.restype = ctypes.c_int
-    lib.repro_flash_fwd.argtypes = [p, p, p, p, p, i64, i64, i64, i64, i64,
-                                    i64, i64, ctypes.c_int, ctypes.c_int,
-                                    i64, ctypes.c_float, p]
-    lib.repro_flash_fwd.restype = ctypes.c_int
+    for fn in (lib.repro_flash_fwd_f32, lib.repro_flash_fwd_bf16):
+        fn.argtypes = [p, p, p, p, p, i64, i64, i64, i64, i64, i64,
+                       ctypes.c_int, i64, ctypes.c_float, p]
+        fn.restype = ctypes.c_int
     lib.repro_error_string.argtypes = [ctypes.c_int]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib

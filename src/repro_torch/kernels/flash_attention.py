@@ -1,17 +1,25 @@
 """Flash-attention forward: online softmax over key tiles, GQA, causal and
 sliding-window masks, fully masked tiles skipped.
 
-Port of the Pallas kernel `repro.kernels.flash_attention.flash_attention_fwd`:
-one CUDA kernel (`csrc/flash_attention.cu`, `flash_fwd_kernel`) for
-(dk, dv) in {(64, 64), (128, 128)} and bf16 or fp32 inputs. It takes any
-Sq, Skv >= 1 (the Pallas kernel needs them to divide its blocks), so the
-port's CUDA path has no branch to a plain version.
+Port of the Pallas kernel `repro.kernels.flash_attention.flash_attention_fwd`
+as two hand-written CUDA kernels, routed by dtype, for (dk, dv) in
+{(64, 64), (128, 128)}:
 
-`flash_attention_fwd` is the wrapper: a CUDA tensor launches the kernel
-(and counts it in `launches`), a CPU tensor takes
+- bf16: `flash_fwd_sm90_kernel` (`csrc/flash_fwd_sm90.cu`), built for
+  Hopper: a persistent grid whose CTAs walk 128-row q tiles over 128-key
+  tiles, one producer warpgroup feeding a TMA ring and two consumer
+  warpgroups taking turns on `wgmma`;
+- fp32: `flash_fwd_kernel` (`csrc/flash_attention.cu`), scalar FMA, 64 x 64
+  tiles (wgmma has no full-fp32 product).
+
+Both take any Sq, Skv >= 1 (the Pallas kernel needs them to divide its
+blocks), so the port's CUDA path has no branch to a plain version.
+
+`flash_attention_fwd` is the wrapper: a CUDA tensor launches one of the
+kernels (and counts it in `launches`), a CPU tensor takes
 `flash_attention_fwd_plain` (counted in `plain_calls`). There is no
 fallback from one to the other. `block_q` / `block_k` shape only the plain
-version's block loop; the kernel's tiles are fixed at 64 x 64.
+version's block loop; the kernels' tiles are fixed by their design.
 """
 from __future__ import annotations
 
@@ -27,7 +35,9 @@ DEFAULT_BLOCK_K = 512
 NEG_INF = -1e30
 #: (dk, dv) pairs the CUDA kernel is built for.
 HEAD_DIMS = ((64, 64), (128, 128))
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: C entry point of the kernel for each input dtype.
+_ENTRY = {torch.float32: "repro_flash_fwd_f32",
+          torch.bfloat16: "repro_flash_fwd_bf16"}
 
 launches = 0        # CUDA kernel launches
 plain_calls = 0     # plain-PyTorch evaluations (CPU tensors)
@@ -172,26 +182,25 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"flash_attention_fwd: no CUDA kernel for head dims dk={dk}, "
             f"dv={dv} (built for {HEAD_DIMS}); MLA's dk=288 / dv=256 comes "
             f"with the MLA slice, ROADMAP A9")
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in _ENTRY:
         raise TypeError(f"flash_attention_fwd takes bf16 or fp32 on CUDA, "
                         f"got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash_attention_fwd needs a contiguous, "
                              f"16-byte aligned {name}")
-    if B * Hq > 65535:
+    if q.dtype == torch.float32 and B * Hq > 65535:
         raise ValueError(f"flash_attention_fwd: B * Hq = {B * Hq} > 65535")
     out = torch.empty((B, Hq, Sq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    lib = _build.library()
+    entry = getattr(_build.library(), _ENTRY[q.dtype])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = lib.repro_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, Hq, Hkv, Sq, Skv, dk, dv,
-            _DTYPE_CODE[q.dtype], int(bool(causal)), int(window),
-            ctypes.c_float(dk ** -0.5), stream)
-    _build.check(err, "flash_fwd")
+        err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    lse.data_ptr(), B, Hq, Hkv, Sq, Skv, dk,
+                    int(bool(causal)), int(window),
+                    ctypes.c_float(dk ** -0.5), stream)
+    _build.check(err, _ENTRY[q.dtype])
     with _COUNT_LOCK:
         launches += 1
     return out, lse

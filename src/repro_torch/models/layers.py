@@ -69,7 +69,7 @@ class SwiGLU(nn.Module):
     generator it is the reference's `init_swiglu`."""
 
     def __init__(self, d: int, f: int, gen: torch.Generator | None = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         super().__init__()
         dev = gen.device if gen is not None else torch.device(device)
 
@@ -132,7 +132,7 @@ class Attention(nn.Module):
     `init_attention`."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         super().__init__()
         d, hd = cfg.d_model, cfg.resolved_head_dim
         hq, hkv = cfg.num_heads, cfg.num_kv_heads

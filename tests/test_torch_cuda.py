@@ -86,6 +86,19 @@ FLASH_CASES = [
     (True, 0, 2, 8, 2, 1, 1, 128, torch.bfloat16),         # one token
     (True, 0, 1, 2, 1, 256, 256, 128, torch.float32),
     (True, 128, 1, 4, 2, 300, 300, 64, torch.float32),     # window, ragged
+    # the bf16 kernel's tile edges: 128 query rows a CTA, 128-key tiles
+    (True, 0, 1, 4, 1, 127, 127, 128, torch.bfloat16),
+    (True, 0, 1, 4, 1, 128, 128, 128, torch.bfloat16),
+    (True, 0, 1, 4, 1, 129, 129, 128, torch.bfloat16),
+    (True, 0, 1, 4, 1, 129, 129, 64, torch.bfloat16),
+    (False, 0, 2, 4, 4, 129, 129, 128, torch.bfloat16),    # G=1
+    (True, 0, 1, 16, 2, 300, 300, 128, torch.bfloat16),    # G=8
+    (True, 200, 1, 4, 2, 700, 700, 128, torch.bfloat16),   # window over tiles
+    (True, 0, 1, 2, 1, 4096, 4096, 128, torch.bfloat16),   # the ring wraps 16x
+    # non-causal window past the keys: rows (and, at Sq=400, whole q
+    # tiles) that see no key write out = 0 and lse = -inf
+    (False, 4, 1, 2, 1, 40, 8, 64, torch.bfloat16),
+    (False, 4, 1, 2, 1, 400, 8, 128, torch.bfloat16),
 ]
 
 
@@ -107,7 +120,10 @@ def test_flash_matches_plain(card, causal, window, B, Hq, Hkv, Sq, Skv, d,
     tol, lse_tol = (2e-2, 2e-2) if dtype == torch.bfloat16 else (2e-5, 1e-4)
     assert out.dtype == dtype and lse.dtype == torch.float32
     assert (out.float() - want.float()).abs().max().item() <= tol
-    assert (lse - want_lse).abs().max().item() <= lse_tol
+    # rows that see no key: lse is -inf in both, and nowhere else
+    dead = torch.isneginf(want_lse)
+    assert torch.equal(torch.isneginf(lse), dead)
+    assert (lse - want_lse)[~dead].abs().max().item() <= lse_tol
 
 
 def test_flash_head_dim_outside_the_kernel_raises(card):
@@ -123,6 +139,20 @@ def test_flash_counts_launches_only_on_the_card(card):
                                         torch.bfloat16))
     fak.flash_attention_fwd(q, k, v)
     assert (fak.launches, fak.plain_calls) == (1, 0)
+
+
+def test_bf16_flash_is_one_launch_of_the_hopper_kernel(card):
+    """A bf16 call at the serving head dim counts one launch and no plain
+    call, and its result is the plain version's."""
+    q, k, v = (t.to(card) for t in _qkv(1, 2, 8, 2, 300, 300, 128,
+                                        torch.bfloat16))
+    fak.reset_counts()
+    out, lse = fak.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert (fak.launches, fak.plain_calls) == (1, 0)
+    want, want_lse = fak.flash_attention_fwd_plain(q, k, v)
+    assert (out.float() - want.float()).abs().max().item() <= 2e-2
+    assert (lse - want_lse).abs().max().item() <= 2e-2
 
 
 def test_smoke_model_on_the_card_matches_the_cpu(card):

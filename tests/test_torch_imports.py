@@ -13,7 +13,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import make_unilrc
 from repro_torch.io import TorchBackend, resolve_backend
 from repro_torch.launch import serve
-from repro_torch.models import init_cache, init_params
+from repro_torch.models import init_cache, init_params, layers
 from repro_torch.topo import Topology
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
@@ -71,3 +71,18 @@ def test_model_and_server_default_to_cuda_and_never_fall_back():
     with pytest.raises(RuntimeError, match="CUDA"):
         CheckpointManager(BlockStore(Topology(4, 8)), make_unilrc(1, 4))
     assert init_params(cfg, device="cpu").embed.device.type == "cpu"
+
+
+def test_layers_default_to_cuda():
+    cfg = get_config("llama3.2-3b", smoke=True)
+    if torch.cuda.is_available():
+        assert layers.SwiGLU(8, 16).w_gate.device.type == "cuda"
+        assert layers.Attention(cfg).wq.device.type == "cuda"
+        return
+    # torch built without CUDA asserts, one with CUDA but no card raises
+    with pytest.raises((AssertionError, RuntimeError)):
+        layers.SwiGLU(8, 16)
+    with pytest.raises((AssertionError, RuntimeError)):
+        layers.Attention(cfg)
+    assert layers.SwiGLU(8, 16, device="cpu").w_gate.device.type == "cpu"
+    assert layers.Attention(cfg, device="cpu").wq.device.type == "cpu"
