@@ -8,10 +8,12 @@ Drives the port's main path on one CUDA card and checks every byte:
   2. build: the CUDA kernels from `src/repro_torch/csrc/`, compiled by
      nvcc into `build/repro_torch/` at first use;
   3. kernels: each kernel against its plain PyTorch version on the card at
-     the main path's shapes (byte equality for the coding kernels; 2e-2 in
-     bf16 and 2e-5 / 1e-4 in fp32 for attention), with its median time
-     over CUDA events, the plain version's time, the bound and, for
-     attention, PyTorch's `scaled_dot_product_attention` as a yardstick;
+     the main path's shapes and its edges (byte equality for the coding
+     kernels; 2e-2 in bf16 and 2e-5 / 1e-4 in fp32 for attention), with its
+     median time over CUDA events, the plain version's time, the bound and
+     bound share and, for attention, PyTorch's
+     `scaled_dot_product_attention` as a yardstick; ptxas must report 0
+     spill bytes for every instantiation of the two sm90 kernels;
   4. stripe path: UniLRC 180-of-210 (alpha=2, z=10) on 10 clusters x 24
      nodes, 1 MiB blocks, `TorchBackend("cuda")`: a 4 GiB streamed write
      in windows of 8 stripes, a full read, one node lost (degraded read,
@@ -522,12 +524,14 @@ def main() -> None:
         if any(w in line for w in ("registers", "spill", "warning",
                                    "Function properties")):
             print("  ptxas:", line.strip())
-    spills = ptxas_spills(_build.build_log, "flash_fwd_sm90_kernel")
-    phase("ptxas flash_fwd_sm90_kernel", functions=len(spills),
-          spill_bytes=sum(spills.values()))
-    check(len(spills) == 2, f"ptxas reported {len(spills)} instantiations "
-          f"of flash_fwd_sm90_kernel, want 2 (d = 64, 128)")
-    check(not any(spills.values()), f"flash_fwd_sm90_kernel spills {spills}")
+    for kernel, want in (("flash_fwd_sm90_kernel", 2),     # d = 64, 128
+                         ("gf_matmul_sm90_kernel", 5)):    # N widths
+        spills = ptxas_spills(_build.build_log, kernel)
+        phase(f"ptxas {kernel}", functions=len(spills),
+              spill_bytes=sum(spills.values()))
+        check(len(spills) == want, f"ptxas reported {len(spills)} "
+              f"instantiations of {kernel}, want {want}")
+        check(not any(spills.values()), f"{kernel} spills {spills}")
 
     from repro_torch.core import decode_plan_cached, make_unilrc
     from repro_torch.core.gf import gf_bit_columns
@@ -568,10 +572,12 @@ def main() -> None:
                          gfk.bound_ops(S, m, k, B))
         phase("kernel gf_bitmatmul", S=S, m=m, k=k, B=B, offset=offset,
               max_abs_err=err, ms=f"{ms:.4f}", plain_ms=f"{pms:.3f}",
-              bound_ms=f"{b:.4f}", bound_by=by,
+              bound_ms=f"{b:.4f}", bound_by=by, bound_share=f"{b / ms:.4f}",
+              pass_bytes=gfk.pass_bytes(S, m, k, B),
+              TOP_s=f"{gfk.bound_ops(S, m, k, B) / (ms / 1e3) / 1e12:.1f}",
               GiB_s=f"{S * k * B / GIB / (ms / 1e3):.2f}")
         return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
-                    bound_by=by)
+                    bound_by=by, bound_share=b / ms)
 
     def xor_case(S, s, B, reps=10, plain_reps=3, offset=0):
         if offset:
@@ -591,7 +597,7 @@ def main() -> None:
               bound_ms=f"{b:.4f}", bound_by=by,
               GiB_s=f"{xrk.bound_bytes(S, s, B) / GIB / (ms / 1e3):.2f}")
         return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
-                    bound_by=by)
+                    bound_by=by, bound_share=b / ms)
 
     def flash_case(B, Hq, Hkv, Sq, Skv, d, dtype, causal, window=0,
                    reps=30, plain_reps=2):
@@ -647,22 +653,28 @@ def main() -> None:
               bound_share=f"{b / ms:.4f}", vs_library=f"{ms / lms:.3f}",
               TFLOP_s=f"{ops / (ms / 1e3) / 1e12:.1f}")
         return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
-                    bound_by=by, library_ms=lms)
+                    bound_by=by, bound_share=b / ms, library_ms=lms)
 
     rng = np.random.default_rng(2505)
+    # a broken mbarrier ring would hang the card (the gf and flash kernels
+    # have no timeout of their own): end the process with a traceback
+    # instead of waiting
+    faulthandler.dump_traceback_later(300, exit=True)
     gf_main = gf_case(code.A, S_WIN, BS)                       # encode
-    gf_case(cluster_plan.M, S_WIN, BS)                         # decode
+    gf_case(cluster_plan.M, S_WIN, BS)                         # decode, N=176
     for rows, u in ((21, 1), (42, 2), (105, 5)):               # delta terms
         gf_case(rng.integers(1, 256, (rows, u), dtype=np.uint8), 1, BS,
                 plain_reps=3)
+    gf_case(code.A, 2, 4096)                                   # two passes
     gf_case(rng.integers(0, 256, (1, 20), dtype=np.uint8), 3, 3000)
+    gf_case(rng.integers(1, 256, (1, 1), dtype=np.uint8), 2, 1000)  # K pad
     gf_case(code.A, 2, 4097, offset=1)                         # ragged
+    gf_case(code.A, 36, 256)                                   # save batch
+    faulthandler.cancel_dump_traceback_later()
     xor_main = xor_case(23, 20, BS)                            # recovery
     xor_case(1, 2, 3001)
     xor_case(4, 29, 4097, offset=3)
     bf16, fp32 = torch.bfloat16, torch.float32
-    # a broken mbarrier ring would hang the card (the kernel has no timeout
-    # of its own): end the process with a traceback instead of waiting
     faulthandler.dump_traceback_later(300, exit=True)
     flash_main = flash_case(4, 32, 8, 2048, 2048, 128, bf16, True)  # prefill
     flash_case(4, 32, 8, 2047, 2047, 128, bf16, True)      # tile edge - 1
@@ -695,12 +707,13 @@ def main() -> None:
     flash = serve_path(2505)
 
     # 5. results ----------------------------------------------------------------
-    src = "src/repro_torch/csrc/coding_kernels.cu"
     kernels = [
-        dict(name="gf_bitmatmul", route="cuda", source=src,
+        dict(name="gf_bitmatmul", kernel="gf_matmul_sm90_kernel",
+             route="cuda", source="src/repro_torch/csrc/gf_matmul_sm90.cu",
              replaces="src/repro/kernels/gf_bitmatmul.py:108",
              launches=launches["gf_bitmatmul"], library_ms=None, **gf_main),
-        dict(name="xor_reduce", route="cuda", source=src,
+        dict(name="xor_reduce", kernel="xor_fold_kernel", route="cuda",
+             source="src/repro_torch/csrc/coding_kernels.cu",
              replaces="src/repro/kernels/xor_reduce.py:54",
              launches=launches["xor_reduce"], library_ms=None, **xor_main),
         dict(name="flash_attention", kernel="flash_fwd_sm90_kernel",

@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LOCK = threading.Lock()
 
 #: Seconds the last `library()` call spent compiling (0.0 when the library
-#: was already built) and the compiler's resource report (`-Xptxas -v`).
+#: was already built) and the compiler's resource report (`-Xptxas -v`),
+#: kept beside the library and read back when it is reused.
 build_seconds = 0.0
 build_log = ""
 
@@ -83,6 +84,9 @@ def _compile(out: pathlib.Path) -> None:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
                                f"{link.stdout}\n{link.stderr}")
+        log = pathlib.Path(tmp) / "ptxas.log"
+        log.write_text("".join(logs))
+        os.replace(log, out.with_suffix(".log"))
         os.replace(lib, out)        # atomic: concurrent builds agree
     build_seconds = time.perf_counter() - t0
     build_log = "".join(logs)
@@ -111,13 +115,17 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library. The first call in a process compiles it
     if no build of the current sources exists; later calls return the
     loaded library without touching the disk (every launch calls this)."""
-    global _LIB
+    global _LIB, build_seconds, build_log
     if _LIB is not None:
         return _LIB
     with _LOCK:
         if _LIB is None:
             path = library_path()
-            if not path.exists():
+            if path.exists():
+                build_seconds = 0.0
+                log = path.with_suffix(".log")
+                build_log = log.read_text() if log.exists() else ""
+            else:
                 _compile(path)
             _LIB = _load(str(path))
     return _LIB

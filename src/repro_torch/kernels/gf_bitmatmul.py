@@ -2,15 +2,24 @@
 that are not XOR-only, and the parity terms of a delta update.
 
 Port of the Pallas kernels `repro.kernels.gf_bitmatmul.gf_bitmatmul` and
-`gf_bitmatmul_batched`: one CUDA kernel (`csrc/coding_kernels.cu`,
-`gf_matmul_kernel`) computes (S, m, B) = A (m, k) @ (S, k, B) over GF(2^8)
-in one launch; the unbatched form is S = 1.
+`gf_bitmatmul_batched`: one CUDA kernel (`csrc/gf_matmul_sm90.cu`,
+`gf_matmul_sm90_kernel`) computes (S, m, B) = A (m, k) @ (S, k, B) over
+GF(2^8) in one launch; the unbatched form is S = 1.
 
-The TPU kernel multiplies the (8m, 8k) bit matrix `A_bits` by the data's
-bit-planes on the MXU. The CUDA kernel takes the same bits packed one byte
-per bit column, `cols[i, j, b] = A[i, j] * 2^b` (`core.gf.gf_bit_columns`:
-row 8i+o, column 8j+b of `A_bits` is bit o of that byte), and computes
-A[i, j] * x as the XOR of cols[i, j, b] over the set bits b of x.
+The kernel runs the reference's bit-plane product on the int8 tensor
+cores: parity_bits = (A_bits . data_bits) mod 2, transposed so that the
+data bits are the `wgmma`'s register operand (64 byte positions x 32 bit
+columns per instruction, each lane expanding whole data bytes) and the
+bit matrix its shared-memory operand, written by the kernel from `cols`
+(`cols[i, j, b] = A[i, j] * 2^b`, `core.gf.gf_bit_columns`: row 8i+o,
+column 8j+b of `A_bits` is bit o of that byte). Where the bit matrix does
+not fit in shared memory the contraction runs in passes over the same
+byte tiles, each XORing its parity into the output (`kernel_plan`).
+
+The kernel reads data rows through 16-byte strides from a 16-byte-aligned
+base. A tensor whose width B is not a multiple of 16, or whose base is not
+aligned, is first copied into rows of pitch B rounded up to 16: a route
+taken by shape, after which the same kernel runs.
 
 `gf_bitmatmul` is the wrapper: a CUDA tensor launches the kernel (counted
 in `launches`), a CPU tensor takes `gf_bitmatmul_plain` (counted in
@@ -61,6 +70,49 @@ def bound_ops(S: int, m: int, k: int, B: int) -> int:
     return 2 * (8 * m) * (8 * k) * B * S
 
 
+# The CUDA kernel's tiling, as `repro_gf_matmul` in csrc/gf_matmul_sm90.cu
+# works it out (keep the two in step).
+WIDTHS = (32, 64, 128, 176, 240)    # instantiated N = 8 x output rows
+MAX_STEPS = 64                      # 32-column steps per pass (256 rows)
+SMEM_LIMIT = 232_448                # dynamic shared memory of one block
+STAGES = 3                          # data ring of 128-position tiles
+BAR_BYTES = 64                      # the ring's mbarriers
+
+
+def _round1024(x: int) -> int:
+    return -(-x // 1024) * 1024
+
+
+def kernel_plan(m: int, k: int) -> dict:
+    """How the kernel cuts an (m, k) product: the N width, the N tiles (at
+    most 30 output rows each) and the K passes (32 bit columns a step, as
+    many steps a pass as the bit matrix and the data stages fit in shared
+    memory)."""
+    ksteps = -(-k // 4)
+    nnt = -(-m // (WIDTHS[-1] // 8))
+    rows = -(-m // nnt)
+    nnt = -(-m // rows)
+    N = next(n for n in WIDTHS if 8 * rows <= n)
+    npk = -(-ksteps // MAX_STEPS)
+    while True:
+        spp = -(-ksteps // npk)
+        smem = 1024 + _round1024(spp * N * 32) + STAGES * _round1024(
+            4 * spp * 128) + BAR_BYTES
+        if smem <= SMEM_LIMIT:
+            return dict(N=N, n_tiles=nnt, rows_per_tile=rows, k_passes=npk,
+                        steps_per_pass=spp, smem=smem)
+        npk += 1
+
+
+def pass_bytes(S: int, m: int, k: int, B: int) -> int:
+    """Bytes the kernel moves beyond `bound_bytes`: every K pass after the
+    first reads and rewrites the output, every N tile after the first
+    reads the data again."""
+    plan = kernel_plan(m, k)
+    return (2 * S * m * B * (plan["k_passes"] - 1)
+            + S * k * B * (plan["n_tiles"] - 1))
+
+
 def _check(cols: torch.Tensor, data: torch.Tensor) -> None:
     if cols.dtype != torch.uint8 or data.dtype != torch.uint8:
         raise TypeError(f"gf_bitmatmul takes uint8, got {cols.dtype}, "
@@ -102,6 +154,13 @@ def gf_bitmatmul(cols: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     out = torch.empty((S, m, B), dtype=torch.uint8, device=data.device)
     if B == 0:
         return out
+    if B % 16 or data.data_ptr() % 16:
+        # rows of pitch B rounded up to 16 from an aligned base (module
+        # docstring); the pad bytes are never read
+        aligned = torch.empty((S, k, -(-B // 16) * 16), dtype=torch.uint8,
+                              device=data.device)
+        aligned[:, :, :B] = data
+        data = aligned
     lib = _build.library()
     stream = torch.cuda.current_stream(data.device).cuda_stream
     with torch.cuda.device(data.device):

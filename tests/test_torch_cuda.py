@@ -35,15 +35,65 @@ def _bytes(seed, shape):
     return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
 
 
-@pytest.mark.parametrize("S,m,k,B", [(1, 1, 1, 1), (3, 1, 20, 3000),
-                                     (2, 21, 180, 4096), (8, 30, 180, 65536),
-                                     (2, 17, 33, 1000), (1, 40, 9, 160)])
-def test_gf_matches_plain(card, S, m, k, B):
-    cols = torch.from_numpy(gf_bit_columns(_bytes(m * k, (m, k)).numpy()))
-    data = _bytes(B, (S, k, B))
-    got = gfk.gf_bitmatmul(cols.to(card), data.to(card))
+GF_CASES = [
+    (1, 1, 1, 1, "random", 0), (3, 1, 20, 3000, "random", 0),
+    (2, 21, 180, 4096, "random", 0), (8, 30, 180, 65536, "random", 0),
+    (2, 17, 33, 1000, "random", 0), (1, 40, 9, 160, "random", 0),
+    # the encode code: N = 240, the 1,440 bit columns in two passes
+    (2, 30, 180, 4096, "encode", 0),
+    # the cluster-decode plan: N padded from 168 to 176, two passes
+    (2, 21, 180, 4096, "cluster", 0),
+    # delta terms over four and two N tiles
+    (1, 105, 5, 4096, "random", 0), (1, 42, 2, 4096, "random", 0),
+    # one output row; K padded from 8 to 32 bit columns
+    (2, 1, 20, 4096, "random", 0), (2, 1, 1, 1000, "random", 0),
+    # a ragged width and an unaligned base take the wrapper's aligned copy
+    (2, 30, 180, 4097, "encode", 0), (2, 30, 180, 4097, "encode", 1),
+    # the serve save's batch of 36 stripes
+    (36, 30, 180, 256, "encode", 0),
+]
+
+
+def _matrix(kind, m, k):
+    if kind == "random":
+        return _bytes(m * k, (m, k)).numpy()
+    code = make_unilrc(2, 10)
+    M = code.A if kind == "encode" else \
+        decode_plan(code, code.groups[0]).M
+    assert M.shape == (m, k)
+    return M
+
+
+@pytest.mark.parametrize("S,m,k,B,kind,offset", GF_CASES)
+def test_gf_matches_plain(card, S, m, k, B, kind, offset):
+    cols = torch.from_numpy(gf_bit_columns(_matrix(kind, m, k)))
+    flat = _bytes(B, (S * k * B + offset,))
+    data = flat[offset:].view(S, k, B)
+    got = gfk.gf_bitmatmul(cols.to(card), flat.to(card)[offset:].view(S, k, B))
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), gfk.gf_bitmatmul_plain(cols, data))
+
+
+def test_gf_call_is_one_launch_of_the_tensor_core_kernel(card):
+    """One call on aligned data counts one launch, runs one device kernel
+    and it is `gf_matmul_sm90_kernel`."""
+    from torch.profiler import ProfilerActivity, profile
+    cols = torch.from_numpy(gf_bit_columns(_matrix("encode", 30, 180)))
+    data = _bytes(7, (2, 180, 4096)).to(card)
+    cols = cols.to(card)
+    gfk.gf_bitmatmul(cols, data)                       # built and warm
+    torch.cuda.synchronize()
+    before = (gfk.launches, gfk.plain_calls)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gfk.gf_bitmatmul(cols, data)
+        torch.cuda.synchronize()
+    assert (gfk.launches, gfk.plain_calls) == (before[0] + 1, before[1])
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memset" not in e.name.lower()
+               and "memcpy" not in e.name.lower()]
+    assert len(kernels) == 1 and "gf_matmul_sm90_kernel" in kernels[0], \
+        kernels
 
 
 def test_gf_unaligned_view_and_decode_matrix(card):

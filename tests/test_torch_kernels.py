@@ -16,6 +16,7 @@ from repro.core.codec import single_recovery_plan as ref_single_plan
 from repro.core.gf import expand_coding_matrix_to_bits as ref_expand_bits
 from repro.core.gf import gf_matmul as ref_gf_matmul
 from repro.kernels import ops as ref_ops
+from repro.kernels.ref import gf_bitmatmul_ref as ref_bitmatmul_ref
 from repro_torch.core import (code_from_state, decode_plan, make_alrc,
                               make_unilrc, paper_schemes, single_recovery_plan)
 from repro_torch.core.gf import (expand_coding_matrix_to_bits,
@@ -126,6 +127,217 @@ def test_cpu_tensors_take_the_plain_versions():
     ops.xor_fold(data)
     assert (gfk.plain_calls, gfk.launches) == (1, 0)
     assert (xrk.plain_calls, xrk.launches) == (1, 0)
+
+
+# -- the tensor-core kernel's arithmetic, emulated on the CPU ---------------------
+#
+# csrc/gf_matmul_sm90.cu computes the bit-plane product as int8 wgmma
+# products: A from the data's nibble expansion in registers, B from the bit
+# columns in shared memory, K in a permuted order, the 8k columns in passes
+# whose parities are XORed, and the parity bits repacked over a quad of
+# lanes. These tests run the same arithmetic in torch and hold it against
+# the plain version and the reference's oracles.
+
+def _nibble_bytes(x):
+    """Four bits -> four bytes of 0 or 1 in a word, as the kernel does."""
+    return (x * 0x00204081) & 0x01010101
+
+
+def _word_bytes(w):
+    """Words -> their four bytes, byte q = bits 8q .. 8q + 7."""
+    return torch.stack([(w >> (8 * q)) & 0xFF for q in range(4)], dim=-1)
+
+
+def _bit_column(N, i, o):
+    """Column of bit o of output row i in an N tile, as the kernel lays
+    them out: the first 4 (N // 32) rows so that lane t of a quad holds
+    all bits of rows 4q + t, the rest one row per 8-column block."""
+    if i < 4 * (N // 32):
+        return 8 * (i & ~3) + 8 * (o >> 1) + 2 * (i & 3) + (o & 1)
+    return 8 * i + o
+
+
+def _kernel_operands(cols, data, N):
+    """The wgmma operands of one N tile: A (S, B, 32 steps) from the data
+    bytes and B (32 steps, N) from the tile's bit columns. Column
+    32s + 16h + 4t + q of K is bit 4h + q of data row 4s + t (rows past k
+    are zero)."""
+    m, k, _ = cols.shape
+    S, _, B = data.shape
+    steps = -(-k // 4)
+    x = torch.zeros((S, 4 * steps, B), dtype=torch.int64)
+    x[:, :k] = data.long()
+    planes = [_word_bytes(_nibble_bytes(x & 0xF)),
+              _word_bytes(_nibble_bytes(x >> 4))]      # (S, 4 steps, B, q)
+    a = torch.stack(planes, dim=2).reshape(S, steps, 4, 2, B, 4)
+    a = a.permute(0, 4, 1, 3, 2, 5).reshape(S, B, 32 * steps)
+    c = torch.zeros((m, 4 * steps, 8), dtype=torch.int64)
+    c[:, :k] = cols.long()
+    words = [sum(c[:, :, 4 * h + q] << (8 * q) for q in range(4))
+             for h in range(2)]                          # (m, 4 steps)
+    bits = torch.stack([torch.stack([_word_bytes((w >> o) & 0x01010101)
+                                     for o in range(8)], dim=2)
+                        for w in words], dim=2)          # (m, 4s, h, o, q)
+    bits = bits.reshape(m, steps, 4, 2, 8, 4).permute(1, 3, 2, 5, 0, 4)
+    bits = bits.reshape(32 * steps, m, 8)
+    b = torch.zeros((32 * steps, N), dtype=torch.int64)
+    for i in range(m):
+        for o in range(8):
+            b[:, _bit_column(N, i, o)] = bits[:, i, o]
+    return a, b
+
+
+def _quad_epilogue(parity):
+    """Parity bits (S, B, 8g), B even, one output row per 8-column block
+    -> bytes (S, g, B) through the kernel's quad transpose: lane t holds
+    bits 2t, 2t+1 of every row for two byte positions, and two shuffles
+    leave it whole bytes of the rows 4q + t."""
+    S, B, N = parity.shape
+    G = -(-N // 32) * 4                                  # rows, padded to 4
+    d = torch.zeros((S, B // 2, 2, 8 * G), dtype=torch.int64)
+    d[..., :N] = parity.reshape(S, B // 2, 2, N)
+    d = d.reshape(S, B // 2, 2, G // 4, 4, 4, 2)         # [pos, q, u, t, e]
+    t = torch.arange(4)                                 # lanes, last
+    part = ((d[:, :, 0, ..., 0] | d[:, :, 0, ..., 1] << 1)
+            | (d[:, :, 1, ..., 0] | d[:, :, 1, ..., 1] << 1) << 8) << (2 * t)
+    part = part.transpose(-1, -2)                        # [.., q, t, u]
+    w01 = part[..., 0] | part[..., 1] << 16
+    w23 = part[..., 2] | part[..., 3] << 16
+    hi2 = (torch.arange(4) & 2).bool()
+    keep = torch.where(hi2, w23, w01)
+    keep = keep | torch.where(hi2, w01, w23)[..., [2, 3, 0, 1]]
+    hi1 = (torch.arange(4) & 1).bool()
+    mine = torch.where(hi1, keep >> 16, keep & 0xFFFF)
+    mine = mine | torch.where(hi1, keep & 0xFFFF, keep >> 16)[..., [1, 0, 3, 2]]
+    out = torch.stack([mine & 0xFF, mine >> 8], dim=-1)  # [S, pos/2, q, t, 2]
+    out = out.reshape(S, B // 2, G, 2).permute(0, 2, 1, 3).reshape(S, G, B)
+    return out[:, :N // 8]
+
+
+def _tile_epilogue(parity, N):
+    """Parity bits (S, B, N) of one N tile, B even -> bytes (S, N // 8, B):
+    lane t packs rows 4q + t, q < N // 32, from its own registers (block
+    4q + b, columns 2t + e: bits 2b + e), the rest through the quad
+    transpose."""
+    S, B, _ = parity.shape
+    F = N // 32
+    d = parity[..., :32 * F].reshape(S, B // 2, 2, F, 4, 4, 2)  # [p, q, b, t, e]
+    weight = 1 << (2 * torch.arange(4)[:, None] + torch.arange(2))  # [b, e]
+    own = (d * weight[:, None, :]).sum(dim=(-3, -1))     # [S, p, pos, q, t]
+    own = own.permute(0, 3, 4, 1, 2).reshape(S, 4 * F, B)
+    return torch.cat([own, _quad_epilogue(parity[..., 32 * F:])], dim=1)
+
+
+def _kernel_product(cols, data, step_ranges):
+    """The kernel's arithmetic: per N tile of `gfk.kernel_plan`, int32
+    products over each pass's steps, the passes' parities XORed, packed by
+    the epilogue."""
+    m, k, _ = cols.shape
+    B = data.shape[2]
+    plan = gfk.kernel_plan(m, k)
+    N, R = plan["N"], plan["rows_per_tile"]
+    if B % 2:
+        data = torch.cat([data, torch.zeros_like(data[..., :1])], dim=2)
+    rows = []
+    for lo in range(0, m, R):
+        a, b = _kernel_operands(cols[lo:lo + R], data, N)
+        parity = 0
+        for s0, s1 in step_ranges:
+            acc = a[..., 32 * s0:32 * s1].int() @ b[32 * s0:32 * s1].int()
+            assert int(acc.max()) <= 32 * (s1 - s0)       # exact in int32
+            parity = parity ^ (acc.long() & 1)
+        rows.append(_tile_epilogue(parity, N)[:, :min(R, m - lo)])
+    return torch.cat(rows, dim=1)[..., :B].to(torch.uint8)
+
+
+def _passes(k, per_pass):
+    steps = -(-k // 4)
+    return [(s, min(s + per_pass, steps)) for s in range(0, steps, per_pass)]
+
+
+def test_nibble_expansion_is_the_bits():
+    x = torch.arange(16)
+    got = _word_bytes(_nibble_bytes(x))
+    assert torch.equal(got, (x[:, None] >> torch.arange(4)) & 1)
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("name", NAMES)
+def test_kernel_arithmetic_matches_reference(scheme, name):
+    """Every paper code's encode matrix through the emulated kernel, with
+    the kernel's own passes and with the steps split into two passes,
+    against the plain version and the reference's oracles."""
+    A = ref_paper_schemes(scheme)[name].A
+    m, k = A.shape
+    data = _rng_bytes(m + k, (2, k, 37))
+    cols = _t(gf_bit_columns(A))
+    want = gfk.gf_bitmatmul_plain(cols, _t(data))
+    for s in range(2):
+        assert np.array_equal(want[s].numpy(), ref_gf_matmul(A, data[s]))
+        assert np.array_equal(
+            want[s].numpy(), ref_bitmatmul_ref(ref_expand_bits(A), data[s]))
+    steps = -(-k // 4)
+    plan = gfk.kernel_plan(m, k)
+    for ranges in (_passes(k, plan["steps_per_pass"]),
+                   _passes(k, -(-steps // 2))):
+        assert torch.equal(_kernel_product(cols, _t(data), ranges), want)
+
+
+@pytest.mark.parametrize("m,k,B", [(21, 1, 64), (42, 2, 33), (105, 5, 16),
+                                   (1, 20, 30), (1, 1, 1), (21, 180, 8),
+                                   (16, 255, 6)])
+def test_kernel_arithmetic_edge_shapes(m, k, B):
+    A = _rng_bytes(7 * m + k, (m, k))
+    data = _rng_bytes(B, (1, k, B))
+    cols = _t(gf_bit_columns(A))
+    want = gfk.gf_bitmatmul_plain(cols, _t(data))
+    assert np.array_equal(want[0].numpy(), ref_gf_matmul(A, data[0]))
+    plan = gfk.kernel_plan(m, k)
+    got = _kernel_product(cols, _t(data), _passes(k, plan["steps_per_pass"]))
+    assert torch.equal(got, want)
+
+
+def test_reused_library_keeps_its_ptxas_report(tmp_path, monkeypatch):
+    """A build writes ptxas's report beside the library; a process that
+    finds the library built reads the report back (chip_smoke.py checks
+    the spill counts in it on every run)."""
+    from repro_torch.kernels import _build
+    lib = tmp_path / "libreprocoding_test.so"
+    report = "ptxas info    : Function properties for gf_matmul_sm90_kernel\n"
+
+    def compile_(out):
+        out.write_bytes(b"")
+        out.with_suffix(".log").write_text(report)
+        _build.build_log = report
+
+    monkeypatch.setattr(_build, "library_path", lambda: lib)
+    monkeypatch.setattr(_build, "_compile", compile_)
+    monkeypatch.setattr(_build, "_load", lambda path: path)
+    monkeypatch.setattr(_build, "_LIB", None)
+    assert _build.library() == str(lib)
+    monkeypatch.setattr(_build, "_LIB", None)
+    monkeypatch.setattr(_build, "build_log", "")
+    monkeypatch.setattr(_build, "_compile", None)        # must not rebuild
+    assert _build.library() == str(lib)
+    assert _build.build_log == report and _build.build_seconds == 0.0
+
+
+def test_kernel_plan_at_the_stripe_shapes():
+    """The kernel's cuts at the main path's shapes: the encode width in two
+    passes, the cluster decode padded to 176, the widest delta term in four
+    N tiles; every plan fits a block's shared memory."""
+    encode = gfk.kernel_plan(30, 180)
+    assert (encode["N"], encode["k_passes"], encode["steps_per_pass"]) == \
+        (240, 2, 23)
+    assert gfk.kernel_plan(21, 180)["N"] == 176
+    assert gfk.kernel_plan(105, 5)["n_tiles"] == 4
+    assert gfk.kernel_plan(1, 1)["N"] == 32
+    for m, k in ((30, 180), (21, 180), (105, 5), (1, 255), (30, 2000)):
+        plan = gfk.kernel_plan(m, k)
+        assert plan["smem"] <= gfk.SMEM_LIMIT
+        assert 8 * plan["rows_per_tile"] <= plan["N"] <= 240
+        assert plan["n_tiles"] * plan["rows_per_tile"] >= m
+    assert gfk.pass_bytes(8, 30, 180, 1 << 20) == 2 * 8 * 30 * (1 << 20)
 
 
 # -- the port's ops against the reference's ops, byte for byte -----------------

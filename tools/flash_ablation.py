@@ -66,8 +66,9 @@ def build(srcs: dict[str, str]) -> dict[str, ctypes.CDLL]:
     for name, text in srcs.items():
         (OUT / f"{name}.cu").write_text(text)
         procs[name] = subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(OUT / f"{name}.so"),
-             str(OUT / f"{name}.cu")], stdout=subprocess.PIPE,
+            [nvcc, *_build.NVCC_FLAGS, "-I", str(SRC.parent), "-shared", "-o",
+             str(OUT / f"{name}.so"), str(OUT / f"{name}.cu")],
+            stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
