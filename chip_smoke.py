@@ -19,12 +19,30 @@ Drives the port's main path on one CUDA card and checks every byte:
      in windows of 8 stripes, a full read, one node lost (degraded read,
      recovery, rebuild), one cluster lost (21 erasures per stripe) and a
      few delta-parity updates; launch bounds asserted;
+  7. serving front-end on the stripe path's 23 stripes: a 4-shard
+     `ShardedFrontend` on the same `TorchBackend("cuda")`, driven open loop
+     by the reference saturation benchmark's traffic (Zipf 0.9 over the
+     stripes, tenants gold / silver / free at 0.5 / 0.3 / 0.2, 8,000
+     requests/s for 0.15 s of virtual time in 2 ms ticks, one node failed,
+     a metered BACKGROUND rebuild storm of its parity blocks every 8 ticks,
+     QoS watermarks and tenant buckets, a hot-block cache, every flush
+     hazard-checked); then a scrub of every stripe, a same-block
+     degraded-read storm cached and uncached, and degraded reads after a
+     whole cluster is lost. Every served byte is checked against the
+     payload; wall latencies per class, requests/s, launches per class,
+     the cache hit rate and the device share are printed, and the pinned
+     host memory the phase used (the backend's staging is bounded per
+     thread). The phase then hands back the device memory it left cached;
   6. serve path: llama3.2-3b at full width (random weights from a seed)
      saved as a 180-of-210 checkpoint through `CheckpointManager`, one
      node lost, restored degraded (zero cross-cluster bytes, every tensor
      byte-identical), rebuilt, and served: 8 requests of 2048 prompt + 32
      generated tokens in batches of 4, every prefill attention layer
-     through the flash kernel; prefill + decode checked against prefill;
+     through the flash kernel (no blockwise attention); prefill + decode
+     checked against prefill;
+  8. the server's own entry point at its SMOKE config (head dim 16, which
+     no flash kernel takes): `repro_torch.launch.serve.run` completes on
+     the card, attending blockwise with no flash launch;
   5. a JSON line of per-kernel numbers, the card line, and the result
      line `{"ok": true, "device": {...}}` last.
 
@@ -118,10 +136,11 @@ def ptxas_spills(log: str, kernel: str) -> dict[str, int]:
     return spills
 
 
-def main_path(backend, BS: int, payload, rng) -> None:
+def main_path(backend, BS: int, payload, rng):
     """The port's main path: UniLRC 180-of-210 on 10 x 24 nodes through
     `backend`, windows of 8 stripes. Checks every byte and the launch
-    bounds; exits on the first failed check."""
+    bounds; exits on the first failed check. Returns the codec, the stripe
+    metadata and the new bytes of the data blocks it updated."""
     import numpy as np
     import torch
 
@@ -259,11 +278,13 @@ def main_path(backend, BS: int, payload, rng) -> None:
 
     # 4.5 delta-parity updates
     touched = [(0, 5), (11, 100), (22, 179), (22, 3)]
+    updated = {}
     t = reset()
     for sid, b in touched:
         new = rng.integers(0, 256, BS, dtype=np.uint8).tobytes()
         codec.update_block(metas[sid], b, new)
         check(store.get(sid, b) == new, f"update {sid}/{b}")
+        updated[(sid, b)] = new
     report("update_block", t, len(touched) * BS,
            {"gf_bitmatmul": len(touched)})
     A_cols = torch.from_numpy(gf_bit_columns(code.A)).to(backend.device)
@@ -275,6 +296,305 @@ def main_path(backend, BS: int, payload, rng) -> None:
         want = host.encode_many(code, cw[None, :code.k, :4096])[0]
         check(np.array_equal(cw[:, :4096], want), f"updated stripe {sid} host")
     phase("update check", stripes=len({s for s, _ in touched}), ok=True)
+    del store.put_many, store.get_many          # the timing wrappers
+    return codec, metas, updated
+
+
+def frontend_path(codec, metas, payload, updated: dict, seed: int) -> dict:
+    """The serving front-end on the stripe path's stripes: a 4-shard
+    `ShardedFrontend` over `codec` (its `TorchBackend("cuda")` shared by
+    the shards), driven by the reference saturation benchmark's traffic
+    (`benchmarks/fig_saturation.py`: Zipf 0.9, three tenants, 8,000
+    requests/s for 0.15 s of virtual time in 2 ms ticks, one node failed,
+    a BACKGROUND rebuild storm of its parity blocks every 8 ticks metered
+    at 4 blocks per shard flush, QoS, a hot-block cache of 4 x stripes,
+    analysed flushes); then a scrub, a same-block degraded-read storm
+    cached and uncached, and degraded reads after a cluster loss. The
+    front-end stamps latencies with the wall clock; virtual time only
+    paces the open loop's ticks and the tenant buckets. Checks
+    every served byte against `payload` (with `updated` applied) right
+    after the flush that served it, before the next tick's submits, and
+    takes the checking time out of the latencies; exits on the first
+    failed check. Returns the phase's launches per kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.io import (HotBlockCache, Priority, ShardedFrontend,
+                                VirtualClock, ZipfWorkload, drive_open_loop)
+    from repro_torch.kernels import gf_bitmatmul as gfk
+    from repro_torch.kernels import xor_reduce as xrk
+    from repro_torch.priority import AdmissionController, QoSConfig
+
+    store, code, backend = codec.store, codec.code, codec.backend
+    k, BS, SHARDS = code.k, codec.block_size, 4
+    for (sid, b), new in updated.items():          # the phase-4 updates
+        off = (sid * k + b) * BS
+        if off < payload.size:
+            n = min(BS, payload.size - off)
+            payload[off:off + n] = np.frombuffer(new, np.uint8)[:n]
+
+    def want_block(sid, b):
+        if (sid, b) in updated:
+            return np.frombuffer(updated[(sid, b)], np.uint8)
+        off = (sid * k + b) * BS
+        out = np.zeros(BS, np.uint8)
+        part = payload[off:off + BS]
+        out[:part.size] = part
+        return out
+
+    def check_read(sid, block, data):
+        got = np.frombuffer(data, np.uint8)
+        if block is not None:
+            check(np.array_equal(got, want_block(sid, block)),
+                  f"degraded read {sid}/{block}")
+            return
+        start = sid * k * BS
+        check(got.size == metas[sid].nbytes and np.array_equal(
+            got, payload[start:start + got.size]), f"client read {sid}")
+
+    def pct_ms(lat, q):
+        if not lat:
+            return "none"
+        lat = sorted(lat)
+        return f"{lat[min(len(lat) - 1, int(q * len(lat)))] * 1e3:.3f}"
+
+    def sync():
+        torch.cuda.synchronize()
+
+    gfk.reset_counts()
+    xrk.reset_counts()
+    backend.reset_times()
+
+    # 7.1 open loop under one failed node and a rebuild storm
+    failed = store.node_of(metas[0].stripe_id, 0)
+    held = store.blocks_on_node(failed)
+    lost_data = {s: b for s, b in held if b < k}
+    parity = sorted((s, b) for s, b in held if b >= k)
+    check(bool(lost_data) and bool(parity), f"node {failed} holds {held}")
+    store.fail_node(failed)
+    ticks = [VirtualClock() for _ in range(SHARDS)]
+    admission = AdmissionController(
+        QoSConfig(background_watermark=64, degraded_watermark=256,
+                  tenant_rate=90_000.0, tenant_burst=3_000.0,
+                  deadline_s={Priority.CLIENT_READ: 0.004}),
+        clock=ticks[0])
+    cache = HotBlockCache(capacity_blocks=4 * len(metas))
+    fe = ShardedFrontend(codec, num_shards=SHARDS, background_ops_per_flush=4,
+                         cache=cache, admission=admission,
+                         clock=time.perf_counter, analyze_flushes=True)
+    duration = 0.15
+    arrivals = ZipfWorkload(num_stripes=len(metas), rate_rps=8_000,
+                            duration_s=duration, theta=0.9,
+                            tenants=("gold", "silver", "free"),
+                            tenant_weights=(0.5, 0.3, 0.2),
+                            seed=seed).arrivals()
+    submitted = {p: 0 for p in Priority}
+    waiting, lat = [], {p: [] for p in Priority}
+    served = {"bytes": 0, "shed": 0, "rebuilt": 0}
+    # host seconds serving (the front-end's flushes) and checking results
+    split = {"flush_s": 0.0, "check_s": 0.0}
+    flush = fe.flush
+
+    def timed_flush():
+        t0 = time.perf_counter()
+        out = flush()
+        split["flush_s"] += time.perf_counter() - t0
+        harvest()
+        return out
+    fe.flush = timed_flush
+
+    def track(handle, sid, block):
+        waiting.append((handle, sid, block, split["check_s"]))
+        children = getattr(handle, "_children", [handle])
+        submitted[handle.priority] += len(children)
+        return handle
+
+    def harvest():
+        """Check what the last flush served. A request that waited over
+        several flushes had earlier checks run while it waited: they are
+        the smoke's own time, not the front-end's, and leave its latency."""
+        t0 = time.perf_counter()
+        checked_before = split["check_s"]
+        still = []
+        for handle, sid, block, check_at_submit in waiting:
+            if not handle.done:
+                still.append((handle, sid, block, check_at_submit))
+                continue
+            if handle.shed:
+                served["shed"] += 1
+                continue
+            value = handle.result()
+            lat[handle.priority].append(
+                handle.latency_s - (checked_before - check_at_submit))
+            if handle.kind == "rebuild":
+                served["rebuilt"] += value[0]
+                continue
+            served["bytes"] += len(value)
+            check_read(sid, block, value)
+        waiting[:] = still
+        split["check_s"] += time.perf_counter() - t0
+
+    def submit(a):
+        meta = metas[a.stripe]
+        if a.stripe in lost_data:
+            return track(fe.submit_degraded_read(
+                meta, lost_data[a.stripe], tenant=a.tenant),
+                a.stripe, lost_data[a.stripe])
+        return track(fe.submit_client_read(meta, tenant=a.tenant),
+                     a.stripe, None)
+
+    tick_no = [0]
+
+    def on_tick(t):
+        tick_no[0] += 1
+        if t > duration or tick_no[0] % 8:
+            return None
+        for s, b in parity:
+            store.drop_block(s, b)
+        handle = track(fe.submit_rebuild(parity, exclude_node=failed),
+                       None, None)
+        return [(handle, t, parity[0][0] % SHARDS)]
+
+    sync()
+    t0 = time.perf_counter()
+    drive_open_loop(fe, arrivals, submit, clocks=ticks, num_shards=SHARDS,
+                    tick_s=0.002, on_tick=on_tick)
+    sync()
+    wall = time.perf_counter() - t0
+    harvest()
+    check(not waiting, f"{len(waiting)} requests never resolved")
+    stats = fe.stats
+    t = backend.take_times()
+    for p in Priority:
+        check(stats[p].requests + stats[p].shed_requests == submitted[p],
+              f"{p.name}: {stats[p].requests} served + "
+              f"{stats[p].shed_requests} shed != {submitted[p]} submitted")
+        check(stats[p].failed_requests == 0, f"{p.name} requests failed")
+    hazard_flushes = fe.hazard_checked_flushes
+    check(hazard_flushes > 0, "no flush was hazard-checked")
+    requests = sum(stats[p].requests for p in Priority)
+    phase("frontend open loop", arrivals=len(arrivals),
+          virtual_s=duration, wall_s=f"{wall:.3f}",
+          requests=requests, requests_s=f"{requests / wall:.1f}",
+          requests_s_without_checks=(
+              f"{requests / (wall - split['check_s']):.1f}"),
+          flush_s=f"{split['flush_s']:.3f}",
+          check_s=f"{split['check_s']:.3f}",
+          requests_per_flush_s=f"{requests / split['flush_s']:.1f}",
+          served_GiB=f"{served['bytes'] / GIB:.3f}",
+          GiB_s=f"{served['bytes'] / GIB / wall:.3f}",
+          shed=served["shed"], rebuilt_blocks=served["rebuilt"],
+          hazard_checked_flushes=hazard_flushes,
+          cache_hit_rate=f"{cache.stats.hit_rate:.4f}",
+          device_share=f"{t['kernel_ms'] / 1e3 / wall:.5f}",
+          kernel_ms=f"{t['kernel_ms']:.1f}", h2d_ms=f"{t['h2d_ms']:.1f}",
+          d2h_ms=f"{t['d2h_ms']:.1f}")
+    for p in Priority:
+        cls = stats[p]
+        phase(f"frontend class {p.name}", submitted=submitted[p],
+              served=cls.requests, shed=cls.shed_requests,
+              p50_wall_ms=pct_ms(lat[p], 0.50),
+              p99_wall_ms=pct_ms(lat[p], 0.99),
+              max_wall_ms=pct_ms(lat[p], 1.0),
+              launches=cls.launches, blocks=cls.blocks,
+              cache_hits=cls.cache_hits,
+              deadline_misses=cls.deadline_misses, flushes=cls.flushes)
+    fe.close()
+    store.heal_node(failed)
+
+    # 7.2 scrub every stripe (re-encode: gf_bitmatmul)
+    fe = ShardedFrontend(codec, num_shards=SHARDS, analyze_flushes=True)
+    backend.reset_times()
+    t0 = time.perf_counter()
+    report = fe.submit_scrub(metas)
+    fe.drain()
+    wall = time.perf_counter() - t0
+    report = report.result()
+    t = backend.take_times()
+    scrub_launches = fe.stats[Priority.BACKGROUND].launches
+    phase("frontend scrub", stripes=report.stripes, checked=report.checked,
+          mismatched=len(report.mismatched), wall_s=f"{wall:.3f}",
+          launches=scrub_launches,
+          device_share=f"{t['kernel_ms'] / 1e3 / wall:.5f}",
+          kernel_ms=f"{t['kernel_ms']:.1f}")
+    check(report.checked == len(metas) and not report.mismatched,
+          f"scrub {report}")
+    fe.close()
+
+    # 7.3 a same-block degraded-read storm, cached and uncached: one hot
+    # data block lost in one stripe per shard, 10 waves of 6 reads each
+    hot = next(b for b in code.groups[1] if code.block_type[b] == "d")
+    lost = [(sid, hot) for sid in range(SHARDS)]
+    saved = {key: store.get(*key) for key in lost}
+    for key in lost:
+        store.drop_block(*key)
+    results = {}
+    for cached in (True, False):
+        fe = ShardedFrontend(
+            codec, num_shards=SHARDS,
+            cache=HotBlockCache(capacity_blocks=8) if cached else None,
+            analyze_flushes=True)
+        out = []
+        t0 = time.perf_counter()
+        for _ in range(10):
+            hs = [fe.submit_degraded_read(metas[s], b)
+                  for s, b in lost for _ in range(6)]
+            fe.flush()
+            out += [h.result() for h in hs]
+        wall = time.perf_counter() - t0
+        cls = fe.stats[Priority.DEGRADED_READ]
+        results[cached] = out
+        phase("frontend storm", cached=cached, requests=len(out),
+              wall_s=f"{wall:.3f}", requests_s=f"{len(out) / wall:.1f}",
+              launches=cls.launches, cache_hits=cls.cache_hits)
+        want = len(lost) if cached else 10 * len(lost)
+        check(cls.launches == want,
+              f"storm cached={cached}: {cls.launches} launches != {want}")
+        fe.close()
+    check(results[True] == results[False], "cached != uncached")
+    for i, data in enumerate(results[True]):
+        sid, b = lost[(i // 6) % len(lost)]
+        check(data == saved[(sid, b)], f"storm read {sid}/{b}")
+    codec.rebuild_blocks(lost)
+    for key in lost:
+        check(store.get(*key) == saved[key], f"storm rebuild {key}")
+
+    # 7.4 one whole cluster lost: degraded reads decode the 21-erasure
+    # pattern (gf_bitmatmul)
+    cluster = [store.topo.node_of(0, s) for s in range(
+        store.topo.nodes_per_cluster)]
+    for nd in cluster:
+        store.fail_node(nd)
+    targets = [b for b in code.groups[0] if code.block_type[b] == "d"][:3]
+    fe = ShardedFrontend(codec, num_shards=SHARDS, analyze_flushes=True)
+    backend.reset_times()
+    t0 = time.perf_counter()
+    hs = [(fe.submit_degraded_read(m, b, reader_cluster=1), m.stripe_id, b)
+          for m in metas for b in targets]
+    fe.drain()
+    wall = time.perf_counter() - t0
+    t = backend.take_times()
+    for h, sid, b in hs:
+        check_read(sid, b, h.result())
+    cls = fe.stats[Priority.DEGRADED_READ]
+    phase("frontend cluster loss", requests=len(hs), wall_s=f"{wall:.3f}",
+          requests_s=f"{len(hs) / wall:.1f}", launches=cls.launches,
+          cross_GiB=f"{cls.cross_bytes / GIB:.3f}",
+          device_share=f"{t['kernel_ms'] / 1e3 / wall:.5f}",
+          kernel_ms=f"{t['kernel_ms']:.1f}")
+    check(cls.launches == SHARDS, f"cluster loss: {cls.launches} launches")
+    fe.close()
+    for nd in cluster:
+        store.heal_node(nd)
+
+    launches = {"gf_bitmatmul": gfk.launches, "xor_reduce": xrk.launches}
+    plain = {"gf_bitmatmul": gfk.plain_calls, "xor_reduce": xrk.plain_calls}
+    phase("frontend path", kernel_launches=json.dumps(launches),
+          plain_calls=json.dumps(plain))
+    check(all(v > 0 for v in launches.values()),
+          "a kernel never launched on the front-end path")
+    check(not any(plain.values()), "a plain version ran on the front-end")
+    return launches
 
 
 def serve_path(seed: int) -> dict:
@@ -381,10 +701,12 @@ def serve_path(seed: int) -> dict:
     # 6.4 serve: 8 requests, batches of 4, 2048 prompt + 32 generated
     B, P, G, REQ = 4, 2048, 32, 8
     fak.reset_counts()
+    layers.reset_blockwise_calls()
     torch.cuda.synchronize()
     out = serve(cfg, model, batch=B, requests=REQ, prompt_len=P, gen=G,
                 seed=seed, device=dev)
-    flash = {"launches": fak.launches, "plain_calls": fak.plain_calls}
+    flash = {"launches": fak.launches, "plain_calls": fak.plain_calls,
+             "blockwise_calls": layers.blockwise_calls}
     nbatches = math.ceil(REQ / B)
     phase("serve", requests=REQ, batch=B, prompt=P, gen=G,
           seconds=f"{out['seconds']:.3f}",
@@ -398,6 +720,7 @@ def serve_path(seed: int) -> dict:
           f"flash launches {flash['launches']} != "
           f"{nbatches} x {cfg.num_layers}")
     check(flash["plain_calls"] == 0, "flash plain version on the serve path")
+    check(flash["blockwise_calls"] == 0, "blockwise attention on the serve path")
     for toks in out["tokens"]:
         check(tuple(toks.shape) == (B, G), f"tokens {tuple(toks.shape)}")
         check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
@@ -693,33 +1016,72 @@ def main() -> None:
           seconds=f"{time.perf_counter() - t0:.2f}")
     gfk.reset_counts()
     xrk.reset_counts()
-    main_path(TorchBackend("cuda"), MIB, payload, rng)
+    codec, metas, updated = main_path(TorchBackend("cuda"), MIB, payload, rng)
     launches = {"gf_bitmatmul": gfk.launches, "xor_reduce": xrk.launches}
     plain = {"gf_bitmatmul": gfk.plain_calls, "xor_reduce": xrk.plain_calls}
     phase("main path", kernel_launches=json.dumps(launches),
           plain_calls=json.dumps(plain))
     check(all(v > 0 for v in launches.values()), "a kernel never launched")
     check(not any(plain.values()), "a plain version ran on the main path")
-    del payload
+
+    # 7. the serving front-end on phase 4's stripes -----------------------------
+    t0 = time.perf_counter()
+    frontend = frontend_path(codec, metas, payload, updated, 2505)
+    del payload, codec, metas, updated
     gc.collect()
+    # the device's cache goes back, so that the serve path runs with the
+    # device memory it had before the phase
+    torch.cuda.empty_cache()
+    pinned = {key: f"{value / 1e9:.3f}" for key, value in
+              torch.cuda.host_memory_stats().items()
+              if key.endswith(("bytes.current", "bytes.peak"))}
+    phase("frontend phase", seconds=f"{time.perf_counter() - t0:.2f}",
+          pinned_host_GB=json.dumps(pinned))
 
     # 6. serve path -------------------------------------------------------------
     flash = serve_path(2505)
+
+    # 8. the server's entry point at its SMOKE config (head dim 16) ----------
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import layers
+    fak.reset_counts()
+    layers.reset_blockwise_calls()
+    t0 = time.perf_counter()
+    smoke = serve_cli.run(["--arch", "llama3.2-3b", "--requests", "1",
+                           "--prompt-len", "8", "--gen", "2"])
+    smoke_counts = {"launches": fak.launches, "plain_calls": fak.plain_calls,
+                    "blockwise_calls": layers.blockwise_calls}
+    phase("serve smoke arch", seconds=f"{time.perf_counter() - t0:.2f}",
+          tokens=json.dumps([t.tolist() for t in smoke["tokens"]]),
+          flash=json.dumps(smoke_counts))
+    check([tuple(t.shape) for t in smoke["tokens"]] == [(1, 2)],
+          "smoke serve tokens")
+    check(smoke_counts["launches"] == 0 and smoke_counts["plain_calls"] == 0,
+          "flash kernel or plain version at head dim 16")
+    check(smoke_counts["blockwise_calls"] >= 1, "no blockwise attention")
 
     # 5. results ----------------------------------------------------------------
     kernels = [
         dict(name="gf_bitmatmul", kernel="gf_matmul_sm90_kernel",
              route="cuda", source="src/repro_torch/csrc/gf_matmul_sm90.cu",
              replaces="src/repro/kernels/gf_bitmatmul.py:108",
-             launches=launches["gf_bitmatmul"], library_ms=None, **gf_main),
+             launches=launches["gf_bitmatmul"],
+             launches_by_path={"stripe": launches["gf_bitmatmul"],
+                               "frontend": frontend["gf_bitmatmul"]},
+             library_ms=None, **gf_main),
         dict(name="xor_reduce", kernel="xor_fold_kernel", route="cuda",
              source="src/repro_torch/csrc/coding_kernels.cu",
              replaces="src/repro/kernels/xor_reduce.py:54",
-             launches=launches["xor_reduce"], library_ms=None, **xor_main),
+             launches=launches["xor_reduce"],
+             launches_by_path={"stripe": launches["xor_reduce"],
+                               "frontend": frontend["xor_reduce"]},
+             library_ms=None, **xor_main),
         dict(name="flash_attention", kernel="flash_fwd_sm90_kernel",
              route="cuda", source="src/repro_torch/csrc/flash_fwd_sm90.cu",
              replaces="src/repro/kernels/flash_attention.py:116",
-             launches=flash["launches"], **flash_main),
+             launches=flash["launches"],
+             launches_by_path={"serve": flash["launches"]},
+             **flash_main),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line)

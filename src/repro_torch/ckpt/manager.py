@@ -12,8 +12,8 @@ with degraded reads when nodes are down -> rebuild after failures:
   verify(step)                      -> every stripe still decodes
 
 Restores are deterministic bytes: the restored tree is bit-identical to
-what was saved. `code=None` would pick a code from the topology with
-`choose_code`, which is not ported yet (ROADMAP A5): pass a code.
+what was saved. `code=None` picks a code from the topology with
+`choose_code` (the smallest UniLRC meeting the rate target, MTTDL-checked).
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from repro_torch.io.backend import Backend, resolve_backend
 
 from .serialize import Manifest, TreeDef, deserialize_tree, serialize_tree
 from .store import BlockStore, NodeFailure
-from .stripe import StripeCodec, StripeMeta
+from .stripe import StripeCodec, StripeMeta, choose_code
 
 
 @dataclasses.dataclass
@@ -54,14 +54,10 @@ class CheckpointManager:
     def __init__(self, store: BlockStore, code: Code | None = None, *,
                  block_size: int = 1 << 18,
                  backend: Backend | str | None = None):
-        if code is None:
-            raise NotImplementedError(
-                "CheckpointManager(code=None) picks a code with choose_code, "
-                "which is not ported yet (ROADMAP A5): pass a code")
         self.store = store
-        self.code = code
+        self.code = code or choose_code(store.topo)
         self.block_size = block_size
-        self.codec = StripeCodec(code, store, block_size=block_size,
+        self.codec = StripeCodec(self.code, store, block_size=block_size,
                                  backend=resolve_backend(backend))
         self._saved: dict[int, _Saved] = {}
         self._next_stripe = 0
@@ -85,6 +81,10 @@ class CheckpointManager:
         metas = self.write_checkpoint(buf)
         self._saved[step] = _Saved(metas, manifest, treedef)
         return len(metas)
+
+    @property
+    def saved_steps(self) -> list[int]:
+        return sorted(self._saved)
 
     def stripes_of(self, step: int) -> list[StripeMeta]:
         """StripeMeta list of one checkpoint."""

@@ -8,14 +8,18 @@ Traffic accounting distinguishes inner- vs cross-cluster bytes — the
 quantity the paper's topology locality minimises — plus the aggregated
 tier: cross bytes that shipped as gateway-pre-folded blocks.
 
-A copy of `repro.ckpt.store.BlockStore` for the PyTorch port; the durable
-`DiskBlockStore` waits for the checkpoint-manager slice. `store_from_state`
-loads a store from another package's blocks and failed-node set.
+A copy of `repro.ckpt.store` for the PyTorch port: the in-memory
+`BlockStore` and the durable `DiskBlockStore`, whose directory layout is
+the reference's, so each package reopens the other's directory.
+`store_from_state` loads a store from another package's blocks and
+failed-node set.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
+import pathlib
 import threading
 from collections.abc import Callable, Iterator, Mapping
 
@@ -296,6 +300,65 @@ class BlockStore:
             del self._blocks[key]
             del self._block_node[key]
             self._notify_mutation(*key)
+
+
+class DiskBlockStore(BlockStore):
+    """Durable tier: blocks live under root/node_<i>/s<stripe>_b<block>.
+
+    Inherits the in-memory index for placement/failure bookkeeping but
+    persists payloads to disk, so a process restart (the checkpoint/restart
+    drill in the reference's examples/train_with_failures.py) can
+    re-open the store.
+    """
+
+    def __init__(self, topo: Topology, root: str | os.PathLike):
+        super().__init__(topo)
+        self.root = pathlib.Path(root)
+        self.root.mkdir(parents=True, exist_ok=True)
+
+    def _path(self, stripe: int, block: int, node: int) -> pathlib.Path:
+        d = self.root / f"node_{node:04d}"
+        d.mkdir(exist_ok=True)
+        return d / f"s{stripe:06d}_b{block:04d}"
+
+    def _put_nolisten(self, stripe: int, block: int, node: int, data):
+        # put/put_many inherit from BlockStore and keep their listener
+        # semantics; only the payload landing differs (file vs dict).
+        self._path(stripe, block, node).write_bytes(data)
+        self._blocks[(stripe, block)] = b""           # payload on disk
+        self._block_node[(stripe, block)] = node
+
+    def _payload(self, key: tuple[int, int], node: int) -> bytes:
+        return self._path(key[0], key[1], node).read_bytes()
+
+    def reopen(self):
+        """Rebuild the index from the directory tree (restart path)."""
+        self._blocks.clear()
+        self._block_node.clear()
+        for nd in sorted(self.root.glob("node_*")):
+            node = int(nd.name.split("_")[1])
+            for f in nd.iterdir():
+                s, b = f.name[1:].split("_b")
+                self._blocks[(int(s), int(b))] = b""
+                self._block_node[(int(s), int(b))] = node
+
+    def drop_block(self, stripe: int, block: int):
+        node = self._block_node.get((stripe, block))
+        if node is not None:
+            p = self._path(stripe, block, node)
+            if p.exists():
+                p.unlink()
+        super().drop_block(stripe, block)
+
+    def delete_node_blocks(self, node: int):
+        for key in self.blocks_on_node(node):
+            s, b = key
+            p = self._path(s, b, node)
+            if p.exists():
+                p.unlink()
+            del self._blocks[key]
+            del self._block_node[key]
+            self._notify_mutation(s, b)
 
 
 def store_from_state(topo: Topology,

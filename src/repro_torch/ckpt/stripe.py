@@ -21,8 +21,8 @@ compatible ops into single backend calls. The backend is pluggable:
 port's kernels — CUDA by default — or "numpy" for the byte-identical host
 oracle); None means `TorchBackend("cuda")`.
 
-Port of `repro.ckpt.stripe.StripeCodec` (all of it except `choose_code`,
-which waits for the metrics and MTTDL slice). Each public method submits
+Port of `repro.ckpt.stripe`: `StripeCodec` and the MTTDL-driven code
+choice `choose_code`. Each public method submits
 its ops and flushes the engine immediately; the two-phase `plan_*` methods
 (submit ops, return a finish closure) let callers coalesce requests. Plans
 come from the memoized layer in core.codec (plans_for /
@@ -37,11 +37,14 @@ from collections.abc import Callable
 
 import numpy as np
 
-from repro_torch.core.codes import Code
+from repro_torch.core.codes import Code, make_unilrc
+from repro_torch.core.metrics import locality_metrics
+from repro_torch.core.mttdl import MTTDLParams, code_mttdl_years
 from repro_torch.core.placement import Placement, default_placement
 from repro_torch.io.backend import Backend, resolve_backend
 from repro_torch.io.engine import CodingEngine, OpHandle
 from repro_torch.kernels import ops
+from repro_torch.topo import Topology
 
 from .store import BlockStore
 
@@ -605,3 +608,43 @@ class StripeCodec:
         self.engine.flush()
         return finish()
 
+
+def choose_code(topo: Topology, *, target_rate: float = 0.85,
+                min_mttdl_years: float = 1e9,
+                params: MTTDLParams | None = None) -> Code:
+    """Pick UniLRC(α, z=num_clusters) meeting a storage-efficiency target,
+    MTTDL-checked (the reference's 'MTTDL-driven code choice' knob).
+
+    rate = 1 - (α+1)/(αz+1) grows with α; pick the smallest α whose rate
+    reaches the target (smaller α = smaller groups = cheaper recovery),
+    then verify MTTDL.
+    """
+    params = params or MTTDLParams()
+    z = topo.num_clusters
+    if z < 2:
+        raise ValueError("need >= 2 clusters for UniLRC")
+    for alpha in range(1, 9):
+        rate = 1 - (alpha + 1) / (alpha * z + 1)
+        code = make_unilrc(alpha, z)
+        if code.n > topo.num_nodes:
+            # cannot give each block its own node; stop growing stripes
+            break
+        if rate >= target_rate:
+            m = locality_metrics(code, default_placement(code))
+            if code_mttdl_years(code, m, params) >= min_mttdl_years:
+                return code
+    # Fall back: widest feasible alpha, rate be damned — the old
+    # max(1, ...) clamp could hand a tiny topology a stripe wider than
+    # its node count. Feasible means each local group (alpha*zz + 1
+    # blocks, one cluster each) fits nodes_per_cluster — the bound
+    # StripeCodec's constructor enforces, and exactly n <= num_nodes
+    # when zz == num_clusters. If even alpha=1 does not fit, shrink the
+    # cluster span until some UniLRC does.
+    for zz in range(z, 1, -1):
+        alpha = min(8, (topo.nodes_per_cluster - 1) // zz)
+        if alpha >= 1:
+            return make_unilrc(alpha, zz)
+    raise ValueError(
+        f"no UniLRC fits a {topo.num_clusters}x{topo.nodes_per_cluster} "
+        f"topology; the smallest stripe, UniLRC(1, 2), needs 3-node "
+        f"clusters")

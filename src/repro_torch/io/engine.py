@@ -51,6 +51,7 @@ from typing import Any
 
 import numpy as np
 
+from repro_torch.analysis.hazards import analyze_flush
 from repro_torch.core.codec import decode_plan_cached, plans_for
 from repro_torch.core.codes import Code
 from repro_torch.kernels import ops as kernel_ops
@@ -200,7 +201,13 @@ class CodingEngine:
         return len(self._pending)
 
     # -- flush ---------------------------------------------------------------
-    def flush(self) -> FlushStats:
+    def flush(self, *, analyze: bool = False) -> FlushStats:
+        if analyze:
+            # Debug mode: statically prove the queued schedule hazard-free
+            # (waves conflict-free, all-reads-before-any-write, submission
+            # order preserved) BEFORE executing anything. Raises
+            # HazardViolation with the offending op pair.
+            analyze_flush(self, raise_on_violation=True)
         ops_list, self._pending = self._pending, []
         stats = FlushStats(ops=len(ops_list))
         by_kind: dict[str, list[_Op]] = {}

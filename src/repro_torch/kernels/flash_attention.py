@@ -180,8 +180,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if (dk, dv) not in HEAD_DIMS:
         raise NotImplementedError(
             f"flash_attention_fwd: no CUDA kernel for head dims dk={dk}, "
-            f"dv={dv} (built for {HEAD_DIMS}); MLA's dk=288 / dv=256 comes "
-            f"with the MLA slice, ROADMAP A9")
+            f"dv={dv} (built for {HEAD_DIMS}); the forward at dk = dv = "
+            f"256 is ROADMAP B5, and the model layer routes head dims that "
+            f"are not multiples of 128 blockwise")
     if q.dtype not in _ENTRY:
         raise TypeError(f"flash_attention_fwd takes bf16 or fp32 on CUDA, "
                         f"got {q.dtype}")

@@ -6,14 +6,20 @@ softmax) accumulate in fp32, as in the reference. Weights keep the
 reference's layout (`x @ W`, W of shape (in, out)) so that a parameter
 tree means the same bytes in both packages.
 
-Attention in train and prefill mode is the flash kernel
-(`kernels.flash_attention`): the hand-written CUDA kernel on the card, its
-plain version on the CPU. Decode attends one token against the cache with
-plain tensor ops, as the reference does with einsums.
+Attention in train and prefill mode routes by shape, as the reference's
+`_flash_fn` does: head dims the flash kernel is built for
+(`kernels.flash_attention.HEAD_DIMS`) and those that are multiples of 128
+go through its wrapper (the hand-written CUDA kernel on the card, its
+plain version on the CPU); every other head dim takes the kernel's plain
+blockwise forward, the counterpart of the reference's jnp
+`_flash_fwd_impl`, on either device. Decode
+attends one token against the cache with plain tensor ops, as the
+reference does with einsums.
 """
 from __future__ import annotations
 
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -92,11 +98,33 @@ class SwiGLU(nn.Module):
 # Attention
 # ---------------------------------------------------------------------------
 
+blockwise_calls = 0      # flash_attention calls routed off the kernel
+_BLOCKWISE_LOCK = threading.Lock()
+
+
+def reset_blockwise_calls() -> None:
+    global blockwise_calls
+    with _BLOCKWISE_LOCK:
+        blockwise_calls = 0
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, window: int = 0) -> torch.Tensor:
     """q: (B, Hq, Sq, dk), k: (B, Hkv, Skv, dk), v: (B, Hkv, Skv, dv) ->
     (B, Hq, Sq, dv). Forward only: the training slice brings the
-    backward."""
+    backward. Routed as the reference's `_flash_fn` routes: (dk, dv) in
+    `fa.HEAD_DIMS`, and every dk that is a multiple of 128, go to the flash
+    kernel's wrapper, which raises on the card for a pair it lacks
+    (dk = dv = 256, ROADMAP B5); every other head dim takes the blockwise
+    forward `fa.flash_attention_fwd_plain`, the counterpart of the
+    reference's jnp `_flash_fwd_impl`, counted in `blockwise_calls`."""
+    global blockwise_calls
+    dk, dv = q.shape[-1], v.shape[-1]
+    if (dk, dv) not in fa.HEAD_DIMS and dk % 128:
+        with _BLOCKWISE_LOCK:
+            blockwise_calls += 1
+        return fa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                            window=window)[0]
     out, _ = fa.flash_attention_fwd(q.contiguous(), k.contiguous(),
                                     v.contiguous(), causal=causal,
                                     window=window)

@@ -188,13 +188,23 @@ def test_reconstruct_failures_rebuilds_what_the_reference_rebuilds(drill):
         jax.tree_util.tree_leaves(got)))
 
 
-def test_manager_needs_a_code_until_choose_code_is_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        CheckpointManager(BlockStore(Topology(4, 8)),
-                          backend=TorchBackend("cpu"))
-    mgr = CheckpointManager(BlockStore(Topology(4, 8)), make_unilrc(1, 4),
-                            block_size=BLOCK, backend=TorchBackend("cpu"))
+def test_manager_without_a_code_chooses_the_references(weights):
+    """`code=None` picks the code `choose_code` picks in the reference, and
+    a checkpoint saved with it comes back byte for byte."""
+    mgr = CheckpointManager(BlockStore(Topology(4, 8)), block_size=BLOCK,
+                            backend=TorchBackend("cpu"))
+    ref = RefManager(RefStore(RefTopology(4, 8)), block_size=BLOCK,
+                     backend="numpy")
+    assert (mgr.code.name, mgr.code.n, mgr.code.k) == \
+        (ref.code.name, ref.code.n, ref.code.k)
+    assert np.array_equal(mgr.code.A, ref.code.A)
     with pytest.raises(KeyError):
         mgr.restore()
     with pytest.raises(KeyError):
         mgr.stripes_of(3)
+    _, tree = weights
+    mgr.save(tree, step=1)
+    got, report = mgr.restore(1)
+    assert report.degraded_blocks == 0
+    assert all(np.array_equal(_bits(a), _bits(b)) for a, b in zip(
+        jax.tree_util.tree_leaves(tree), jax.tree_util.tree_leaves(got)))

@@ -230,3 +230,51 @@ def test_smoke_model_on_the_card_matches_the_cpu(card):
                          cache=cache, pos=99)
     assert (step[:, 0].cpu().float() - want[:, -1].float()).abs().max() \
         .item() < 5e-2 * scale
+
+
+@pytest.mark.parametrize("d", [16, 80])
+def test_layer_off_the_kernel_head_dims_on_the_card(card, d):
+    """A head dim the flash kernel lacks goes through the layer on the card
+    blockwise (no launch, no raise) and matches the kernel's plain version
+    on the CPU within the bf16 tolerance of FLASH_CASES."""
+    from repro_torch.models import layers
+
+    q, k, v = _qkv(d, 2, 8, 2, 300, 300, d, torch.bfloat16)
+    fak.reset_counts()
+    layers.reset_blockwise_calls()
+    out = layers.flash_attention(q.to(card), k.to(card), v.to(card),
+                                 causal=True)
+    torch.cuda.synchronize()
+    assert (fak.launches, fak.plain_calls, layers.blockwise_calls) == \
+        (0, 0, 1)
+    want, _ = fak.flash_attention_fwd_plain(q, k, v, causal=True)
+    assert (out.cpu().float() - want.float()).abs().max().item() <= 2e-2
+
+
+def test_layer_head_dim_256_on_the_card_raises(card):
+    """dk = dv = 256 is a multiple of 128, which the reference hands its
+    Pallas kernel: the layer hands it to the flash wrapper, which has no
+    kernel for it yet and raises naming ROADMAP B5."""
+    from repro_torch.models import layers
+
+    q, k, v = (t.to(card) for t in _qkv(0, 1, 2, 1, 64, 64, 256,
+                                        torch.bfloat16))
+    layers.reset_blockwise_calls()
+    with pytest.raises(NotImplementedError, match="ROADMAP B5"):
+        layers.flash_attention(q, k, v, causal=True)
+    assert layers.blockwise_calls == 0
+
+
+def test_serve_smoke_arch_on_the_card(card):
+    """`python -m repro_torch.launch.serve --arch llama3.2-3b` on the card:
+    the SMOKE config (head dim 16) serves blockwise, with no flash launch."""
+    from repro_torch.launch import serve
+    from repro_torch.models import layers
+
+    fak.reset_counts()
+    layers.reset_blockwise_calls()
+    out = serve.run(["--arch", "llama3.2-3b", "--requests", "1",
+                     "--prompt-len", "8", "--gen", "2"])
+    assert [tuple(t.shape) for t in out["tokens"]] == [(1, 2)]
+    assert (fak.launches, fak.plain_calls) == (0, 0)
+    assert layers.blockwise_calls >= 1

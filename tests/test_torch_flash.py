@@ -118,3 +118,39 @@ def test_wrapper_rejects_what_it_cannot_take():
         fak.flash_attention_fwd(q, k, v, window=-1)
     with pytest.raises(ValueError):
         fak.flash_attention_fwd(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+# causal, window, B, Hq, Hkv, Sq, Skv, head dim: the SMOKE configs' 16,
+# hubert's 80 and kimi's 112 have no flash kernel; 64 has one; 256 is a
+# multiple of 128, which the reference hands its Pallas kernel
+ROUTE_CASES = [
+    (True, 0, 2, 6, 2, 24, 24, 16), (True, 0, 1, 4, 2, 1500, 1500, 16),
+    (False, 0, 1, 2, 1, 40, 90, 80), (True, 7, 1, 4, 4, 33, 33, 112),
+    (True, 0, 1, 2, 1, 48, 48, 64), (True, 5, 1, 2, 1, 40, 40, 256),
+]
+
+
+@pytest.mark.parametrize("causal,window,B,Hq,Hkv,Sq,Skv,d", ROUTE_CASES)
+def test_layer_routes_head_dims_without_a_kernel_blockwise(
+        causal, window, B, Hq, Hkv, Sq, Skv, d):
+    """`layers.flash_attention` sends head dims outside `HEAD_DIMS` that are
+    not multiples of 128 to the blockwise forward (never to the wrapper,
+    which would raise for them on the card) and the others to the wrapper,
+    as the reference's `_flash_fn` routes; both agree with the reference's
+    layer in bf16 within 2e-2."""
+    from repro.models.layers import flash_attention as ref_layer
+    from repro_torch.models import layers
+
+    (q, k, v), (tq, tk, tv) = _inputs(B, Hq, Hkv, Sq, Skv, d, d, "bfloat16",
+                                      seed=d)
+    fak.reset_counts()
+    layers.reset_blockwise_calls()
+    out = layers.flash_attention(tq, tk, tv, causal=causal, window=window)
+    kernel = (d, d) in fak.HEAD_DIMS or d % 128 == 0
+    assert (fak.plain_calls, layers.blockwise_calls) == \
+        ((1, 0) if kernel else (0, 1))
+    assert fak.launches == 0 and out.shape == (B, Hq, Sq, d)
+    want = ref_layer(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=2e-2, atol=2e-2)

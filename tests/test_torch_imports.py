@@ -18,6 +18,18 @@ from repro_torch.topo import Topology
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
+# The modules each slice added; the probe below imports every module of
+# the package, these must be among them.
+SLICE_MODULES = [
+    "repro_torch.topo.network", "repro_torch.core.metrics",
+    "repro_torch.core.mttdl", "repro_torch.ckpt.stripe",
+    "repro_torch.ckpt.store", "repro_torch.ckpt.manager",
+    "repro_torch.priority", "repro_torch.io.cache",
+    "repro_torch.analysis", "repro_torch.analysis.hazards",
+    "repro_torch.io.engine", "repro_torch.io.backend",
+    "repro_torch.io.frontend", "repro_torch.io.workload",
+]
+
 _PROBE = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None            # any `import jax` now raises
@@ -29,18 +41,20 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if (m.startswith("jax") and sys.modules[m] is not None)
              or m == "repro" or m.startswith("repro."))
-print(len(names), bad)
+missing = sorted(set(SLICE) - set(names) - {"repro_torch"})
+print(len(names), bad, missing)
 """
 
 
 def test_port_imports_no_jax_and_no_reference():
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+    probe = f"SLICE = {SLICE_MODULES!r}\n" + _PROBE
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    count, bad = out.stdout.split(" ", 1)
-    assert int(count) >= 15
-    assert bad.strip() == "[]"
+    count, rest = out.stdout.split(" ", 1)
+    assert int(count) >= 42
+    assert rest.strip() == "[] []"
 
 
 def test_default_backend_is_cuda_and_never_falls_back():

@@ -2,9 +2,9 @@
 
 The reference's `init_params(cfg, PRNGKey(0))` weights go into the port
 through `params_from_jax`; the same token ids (numpy, from a seed) go
-through both `forward`s. The reference runs its jnp blockwise attention on
-the CPU, the port the plain version of the flash kernel (which keeps p in
-fp32 for the PV product where the jnp path rounds it to bf16), and both
+through both `forward`s. At the SMOKE head dim (16), which no flash kernel
+takes, both run their blockwise attention (the reference's jnp
+`_flash_fwd_impl`, the port's `flash_attention_fwd_plain`), and both
 round every matmul to bf16: logits must agree within 5e-2 of max |logit|,
 the bound `tests/test_archs.py` holds decode against train with. Measured
 when this test was written: 0.0124 (train) and 0.0100 (decode) of max
@@ -27,8 +27,8 @@ from repro_torch.configs import all_archs, get_config
 from repro_torch.kernels import flash_attention as fak
 from repro_torch.launch import serve
 from repro_torch.models import (abstract_params, forward, init_cache,
-                                init_params, pad_cache_to, params_from_jax,
-                                params_to_tree)
+                                init_params, layers, pad_cache_to,
+                                params_from_jax, params_to_tree)
 
 TOL = 5e-2
 S = 24
@@ -73,11 +73,14 @@ def test_train_logits_match(pair):
     want, _, _ = ref_forward(params, jnp.asarray(tokens, jnp.int32), ref_cfg,
                              mode="train")
     fak.reset_counts()
+    layers.reset_blockwise_calls()
     got, cache, aux = forward(model, torch.from_numpy(tokens), mode="train")
     assert cache is None and float(aux) == 0.0
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     assert _rel(want, got) < TOL
-    assert (fak.launches, fak.plain_calls) == (0, 2)      # one per layer
+    # head dim 16 is routed off the flash kernel: blockwise, one per layer
+    assert (fak.launches, fak.plain_calls) == (0, 0)
+    assert layers.blockwise_calls == 2
 
 
 def test_prefill_and_decode_logits_match(pair):
@@ -178,14 +181,17 @@ def test_unported_archs_raise_naming_the_roadmap():
 
 def test_serve_run_on_the_cpu():
     fak.reset_counts()
+    layers.reset_blockwise_calls()
     out = serve.run(["--arch", "llama3.2-3b", "--device", "cpu",
                      "--requests", "3", "--batch", "2", "--prompt-len", "16",
                      "--gen", "4"])
     assert [t.shape for t in out["tokens"]] == [(2, 4), (1, 4)]
     assert out["served_tokens"] == 3 * (16 + 4)
     assert len(out["prefill_s"]) == len(out["decode_s"]) == 2
-    # flash runs in every prefill layer, as its plain version on the CPU
-    assert (fak.launches, fak.plain_calls) == (0, 2 * 2)
+    # every prefill layer attends blockwise: the SMOKE head dim (16) has
+    # no flash kernel, as in the reference
+    assert (fak.launches, fak.plain_calls) == (0, 0)
+    assert layers.blockwise_calls == 2 * 2
 
 
 def test_serve_default_arch_needs_mla():
