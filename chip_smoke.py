@@ -9,11 +9,14 @@ Drives the port's main path on one CUDA card and checks every byte:
      nvcc into `build/repro_torch/` at first use;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the main path's shapes and its edges (byte equality for the coding
-     kernels; 2e-2 in bf16 and 2e-5 / 1e-4 in fp32 for attention), with its
+     kernels; 2e-2 in bf16 and 2e-5 / 1e-4 in fp32 for attention, at head
+     dims 64, 128 and 256: recurrentgemma's windowed MQA prefill and the
+     64-key tile's edges), with its
      median time over CUDA events, the plain version's time, the bound and
      bound share and, for attention, PyTorch's
      `scaled_dot_product_attention` as a yardstick; ptxas must report 0
-     spill bytes for every instantiation of the two sm90 kernels;
+     spill bytes for every instantiation of the two sm90 kernels (three
+     of the flash kernel, five of the coding kernel);
   4. stripe path: UniLRC 180-of-210 (alpha=2, z=10) on 10 clusters x 24
      nodes, 1 MiB blocks, `TorchBackend("cuda")`: a 4 GiB streamed write
      in windows of 8 stripes, a full read, one node lost (degraded read,
@@ -43,6 +46,16 @@ Drives the port's main path on one CUDA card and checks every byte:
   8. the server's own entry point at its SMOKE config (head dim 16, which
      no flash kernel takes): `repro_torch.launch.serve.run` completes on
      the card, attending blockwise with no flash launch;
+  9. recurrentgemma-9b at full width (38 layers: 12 x (rg, rg,
+     local_attn) + (rg, rg); 10.5 B parameters, 21.1 GB with fp32 `lam`
+     leaves) through the same path as phase 6: saved as 112 stripes in
+     windows of 8, one node lost, restored degraded byte for byte with
+     zero cross-cluster bytes, rebuilt, then 4 requests of 3,968 prompt +
+     32 generated tokens in batches of 2, every prefill local-attention
+     layer through the flash kernel at head dim 256, window 2,048 (24
+     launches, no blockwise or plain call); prefill + decode checked
+     against prefill; prefill, flash and decode times and the peak host
+     memory printed;
   5. a JSON line of per-kernel numbers, the card line, and the result
      line `{"ok": true, "device": {...}}` last.
 
@@ -597,12 +610,36 @@ def frontend_path(codec, metas, payload, updated: dict, seed: int) -> dict:
     return launches
 
 
-def serve_path(seed: int) -> dict:
-    """The serving path: llama3.2-3b at full width, checkpointed as UniLRC
-    180-of-210 stripes, restored degraded after a node loss, rebuilt and
-    served. Checks every restored byte, the restore's locality, the flash
-    launches and the logits; exits on the first failed check. Returns the
-    flash kernel's launches and plain calls on the serve run."""
+# the served models: physical parameters (every leaf), checkpoint stripes of
+# 180-of-210 at 1 MiB blocks, stripes per encode window (None: the
+# manager's default of 64), and the traffic: requests of prompt + gen
+# tokens, `batch` at a time
+SERVE_CELLS = {
+    "llama3.2-3b": dict(params=3_388_910_592, stripes=36, window=None,
+                        batch=4, requests=8, prompt=2048, gen=32),
+    # 21,098,541,568 bytes (the 26 rg blocks' `lam` leaves are fp32) in
+    # 112 stripes. Windows of 8 stripes: PyTorch's pinned host cache
+    # rounds each of the encode double buffer's four buffers up to a power
+    # of two and never splits one, so 8-stripe windows reuse the four
+    # 2 GiB buffers phase 4 left cached, where 16 would pin 4 x 4 GiB more
+    # beside the 24.6 GB store and the 21 GB restore buffer. 3,968 =
+    # 31 x 128 prompt tokens (tile-aligned, as the reference's Pallas
+    # route wants) past the 2,048-token window, and decode past it too.
+    "recurrentgemma-9b": dict(params=10_549_127_680, stripes=112, window=8,
+                              batch=2, requests=4, prompt=3968, gen=32),
+}
+
+
+def serve_path(seed: int, arch: str, tag: str = "") -> dict:
+    """The serving path of one full-width model (`SERVE_CELLS[arch]`,
+    random weights from `seed`): checkpointed as UniLRC 180-of-210 stripes,
+    restored degraded after a node loss, rebuilt and served. Checks every
+    restored byte, the restore's locality, the flash launches (one per
+    attention layer of each prefill batch) and the logits; exits on the
+    first failed check. Phase lines are named with `tag` in front. Returns
+    the flash kernel's launches and plain calls on the serve run."""
+    import resource
+
     import torch
 
     from repro_torch.ckpt import BlockStore, CheckpointManager
@@ -618,26 +655,33 @@ def serve_path(seed: int) -> dict:
                                     params_to_tree)
     from repro_torch.topo import Topology
 
+    cell = SERVE_CELLS[arch]
     dev = torch.device("cuda")
-    cfg = get_config("llama3.2-3b")
+    cfg = get_config(arch)
+    attn_layers = sum(seg.count * sum(kind != "rg" for kind in seg.blocks)
+                      for seg in cfg.segments)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     t0 = time.perf_counter()
     model = init_params(cfg, gen, dev)
     torch.cuda.synchronize()
     nparams = sum(p.numel() for p in model.parameters())
-    phase("serve init", arch=cfg.name, layers=cfg.num_layers,
-          d_model=cfg.d_model, q_heads=cfg.num_heads_padded,
-          kv_heads=cfg.num_kv_heads_padded, d_ff=cfg.d_ff,
+    phase(f"{tag}serve init", arch=cfg.name, layers=cfg.num_layers,
+          attention_layers=attn_layers, d_model=cfg.d_model,
+          q_heads=cfg.num_heads_padded, kv_heads=cfg.num_kv_heads_padded,
+          head_dim=cfg.resolved_head_dim, window=cfg.window, d_ff=cfg.d_ff,
           vocab=cfg.vocab_size, params=nparams,
-          GB=f"{nparams * 2 / 1e9:.3f}",
+          param_count=cfg.param_count(),
+          GB=f"{sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.3f}",
           seconds=f"{time.perf_counter() - t0:.2f}")
-    check(nparams == 3_388_910_592, f"{nparams} parameters")
+    check(nparams == cell["params"], f"{nparams} parameters")
 
     # 6.1 save: the weights as a 180-of-210 checkpoint, 1 MiB blocks
     store = BlockStore(Topology(num_clusters=10, nodes_per_cluster=24))
     mgr = CheckpointManager(store, make_unilrc(2, 10), block_size=MIB,
                             backend=TorchBackend("cuda"))
+    if cell["window"]:
+        mgr.codec.max_batch_stripes = cell["window"]
     tree = params_to_tree(model)
     del model
     gfk.reset_counts()
@@ -645,11 +689,14 @@ def serve_path(seed: int) -> dict:
     t0 = time.perf_counter()
     nstripes = mgr.save(tree, step=0)
     save_s = time.perf_counter() - t0
-    ckpt_bytes = 2 * nparams                       # every leaf is bf16
-    phase("ckpt save", stripes=nstripes, bytes=ckpt_bytes,
+    ckpt_bytes = sum(p.numel() * p.element_size() for p in leaves(tree))
+    phase(f"{tag}ckpt save", stripes=nstripes, bytes=ckpt_bytes,
           seconds=f"{save_s:.3f}", GiB_s=f"{ckpt_bytes / GIB / save_s:.3f}",
+          window_stripes=mgr.codec.max_batch_stripes,
           gf_launches=gfk.launches, xor_launches=xrk.launches)
-    check(nstripes == 36, f"{nstripes} stripes")
+    check(nstripes == cell["stripes"], f"{nstripes} stripes")
+    check(gfk.launches == math.ceil(nstripes / mgr.codec.max_batch_stripes),
+          f"{gfk.launches} encode launches for {nstripes} stripes")
     check(sum(m.nbytes for m in mgr.stripes_of(0)) == ckpt_bytes,
           "checkpoint bytes")
 
@@ -661,7 +708,7 @@ def serve_path(seed: int) -> dict:
     t0 = time.perf_counter()
     restored, report = mgr.restore()
     restore_s = time.perf_counter() - t0
-    phase("ckpt restore", degraded_blocks=report.degraded_blocks,
+    phase(f"{tag}ckpt restore", degraded_blocks=report.degraded_blocks,
           total_blocks=report.total_blocks_read,
           cross_cluster_bytes=report.cross_cluster_bytes,
           inner_cluster_bytes=report.inner_cluster_bytes,
@@ -672,25 +719,18 @@ def serve_path(seed: int) -> dict:
     check(report.cross_cluster_bytes == 0, "restore crossed clusters")
 
     # 6.3 every restored tensor is the saved tensor, byte for byte
-    def leaves(node):
-        if isinstance(node, dict):
-            for key in sorted(node):
-                yield from leaves(node[key])
-        elif isinstance(node, (tuple, list)):
-            for item in node:
-                yield from leaves(item)
-        else:
-            yield node
-
     nleaves = 0
+    dtypes = set()
     for saved, back in zip(leaves(tree), leaves(restored), strict=True):
         check(saved.shape == back.shape and saved.dtype == back.dtype,
               f"restored leaf {nleaves}: {back.shape} {back.dtype}")
-        check(torch.equal(saved.view(torch.int16),
-                          back.to(dev).view(torch.int16)),
+        check(torch.equal(saved.flatten().view(torch.uint8),
+                          back.to(dev).flatten().view(torch.uint8)),
               f"restored leaf {nleaves} differs")
+        dtypes.add(str(saved.dtype).replace("torch.", ""))
         nleaves += 1
-    phase("ckpt bytes", leaves=nleaves, identical=True)
+    phase(f"{tag}ckpt bytes", leaves=nleaves, dtypes=",".join(sorted(dtypes)),
+          identical=True)
     del tree
     rebuilt = mgr.reconstruct_failures()
     check(not store.failed_nodes and rebuilt > 0, f"rebuilt {rebuilt}")
@@ -698,8 +738,8 @@ def serve_path(seed: int) -> dict:
     del restored, mgr, store
     gc.collect()
 
-    # 6.4 serve: 8 requests, batches of 4, 2048 prompt + 32 generated
-    B, P, G, REQ = 4, 2048, 32, 8
+    # 6.4 serve: requests of prompt + gen tokens, `batch` at a time
+    B, P, G, REQ = cell["batch"], cell["prompt"], cell["gen"], cell["requests"]
     fak.reset_counts()
     layers.reset_blockwise_calls()
     torch.cuda.synchronize()
@@ -708,7 +748,7 @@ def serve_path(seed: int) -> dict:
     flash = {"launches": fak.launches, "plain_calls": fak.plain_calls,
              "blockwise_calls": layers.blockwise_calls}
     nbatches = math.ceil(REQ / B)
-    phase("serve", requests=REQ, batch=B, prompt=P, gen=G,
+    phase(f"{tag}serve", requests=REQ, batch=B, prompt=P, gen=G,
           seconds=f"{out['seconds']:.3f}",
           tokens_s=f"{out['served_tokens'] / out['seconds']:.1f}",
           generated_tokens_s=f"{REQ * G / out['seconds']:.1f}",
@@ -716,9 +756,9 @@ def serve_path(seed: int) -> dict:
           decode_ms_per_token=",".join(f"{t * 1e3 / (G - 1):.3f}"
                                        for t in out["decode_s"]),
           flash=json.dumps(flash))
-    check(flash["launches"] == nbatches * cfg.num_layers,
+    check(flash["launches"] == nbatches * attn_layers,
           f"flash launches {flash['launches']} != "
-          f"{nbatches} x {cfg.num_layers}")
+          f"{nbatches} x {attn_layers}")
     check(flash["plain_calls"] == 0, "flash plain version on the serve path")
     check(flash["blockwise_calls"] == 0, "blockwise attention on the serve path")
     for toks in out["tokens"]:
@@ -744,7 +784,7 @@ def serve_path(seed: int) -> dict:
     finite = bool(torch.isfinite(want).all() and torch.isfinite(got).all())
     scale = want.abs().max().item()
     rel = (got - want).abs().max().item() / scale
-    phase("serve check", max_abs_logit=f"{scale:.4f}",
+    phase(f"{tag}serve check", max_abs_logit=f"{scale:.4f}",
           decode_vs_prefill=f"{rel:.5f}", bound=0.05, finite=finite)
     check(finite, "non-finite logits")
     check(rel < 0.05, f"decode vs prefill {rel:.4f} of max |logit|")
@@ -773,13 +813,13 @@ def serve_path(seed: int) -> dict:
                if e.device_type != DeviceType.CPU]
         device_ms = sum(ms for _, ms, _ in ops)
         top = sorted(ops, key=lambda o: -o[1])[:4]
-        phase("decode split", step_ms=f"{step_ms:.3f}",
+        phase(f"{tag}decode split", step_ms=f"{step_ms:.3f}",
               device_ms=f"{device_ms:.3f}",
               device_share=f"{device_ms / step_ms:.4f}",
               device_ops_per_step=sum(c for _, _, c in ops) // NSTEP,
               top=json.dumps([(k[:40], round(ms, 4)) for k, ms, _ in top]))
     except RuntimeError as err:         # the profiler is untried there
-        phase("decode split", step_ms=f"{step_ms:.3f}",
+        phase(f"{tag}decode split", step_ms=f"{step_ms:.3f}",
               device_ms="not measured", profiler_error=repr(str(err)[:200]))
     del cache
 
@@ -808,10 +848,25 @@ def serve_path(seed: int) -> dict:
         layers.flash_attention = kernel_flash
     prefill_ms = p0.elapsed_time(p1)
     flash_ms = sum(a.elapsed_time(b) for a, b in events)
-    phase("prefill split", prefill_ms=f"{prefill_ms:.3f}",
+    phase(f"{tag}prefill split", prefill_ms=f"{prefill_ms:.3f}",
           flash_ms=f"{flash_ms:.3f}", flash_calls=len(events),
-          flash_share=f"{flash_ms / prefill_ms:.4f}")
+          flash_share=f"{flash_ms / prefill_ms:.4f}",
+          peak_host_rss_GB=f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9:.3f}",
+          peak_device_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
     return flash
+
+
+def leaves(node):
+    """The tensors of a nested dict / tuple / list tree, in sorted-key
+    order."""
+    if isinstance(node, dict):
+        for key in sorted(node):
+            yield from leaves(node[key])
+    elif isinstance(node, (tuple, list)):
+        for item in node:
+            yield from leaves(item)
+    else:
+        yield node
 
 
 def main() -> None:
@@ -847,8 +902,8 @@ def main() -> None:
         if any(w in line for w in ("registers", "spill", "warning",
                                    "Function properties")):
             print("  ptxas:", line.strip())
-    for kernel, want in (("flash_fwd_sm90_kernel", 2),     # d = 64, 128
-                         ("gf_matmul_sm90_kernel", 5)):    # N widths
+    for kernel, want in (("flash_fwd_sm90_kernel", 3),   # d = 64, 128, 256
+                         ("gf_matmul_sm90_kernel", 5)):  # N widths
         spills = ptxas_spills(_build.build_log, kernel)
         phase(f"ptxas {kernel}", functions=len(spills),
               spill_bytes=sum(spills.values()))
@@ -1007,6 +1062,16 @@ def main() -> None:
     flash_case(4, 32, 8, 1000, 1000, 128, bf16, True)      # ragged
     flash_case(2, 16, 4, 1024, 1024, 64, bf16, True)       # d = 64
     flash_case(1, 8, 2, 1024, 1024, 128, fp32, True, reps=5)
+    # head dim 256 (recurrentgemma's local attention, MQA): the serve
+    # prefill shape, then the 64-key tile's and the 128-row q tile's
+    # edges, a window narrower than a key tile, Sq != Skv, one token
+    flash_rg = flash_case(2, 16, 1, 3968, 3968, 256, bf16, True,
+                          window=2048)
+    for S in (63, 64, 65, 127, 128, 129):
+        flash_case(1, 16, 1, S, S, 256, bf16, True, reps=10)
+    flash_case(1, 16, 1, 300, 300, 256, bf16, True, window=40, reps=10)
+    flash_case(1, 16, 1, 1024, 3968, 256, bf16, False, reps=10)
+    flash_case(2, 16, 1, 1, 1, 256, bf16, True, reps=10)
     faulthandler.cancel_dump_traceback_later()
 
     # 4. main path ------------------------------------------------------------
@@ -1039,7 +1104,7 @@ def main() -> None:
           pinned_host_GB=json.dumps(pinned))
 
     # 6. serve path -------------------------------------------------------------
-    flash = serve_path(2505)
+    flash = serve_path(2505, "llama3.2-3b")
 
     # 8. the server's entry point at its SMOKE config (head dim 16) ----------
     from repro_torch.launch import serve as serve_cli
@@ -1059,6 +1124,19 @@ def main() -> None:
     check(smoke_counts["launches"] == 0 and smoke_counts["plain_calls"] == 0,
           "flash kernel or plain version at head dim 16")
     check(smoke_counts["blockwise_calls"] >= 1, "no blockwise attention")
+
+    # 9. recurrentgemma-9b at full width: rg and local_attn blocks, flash
+    # at head dim 256 ------------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()        # phase 6's cached device memory goes back
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    flash_rg_path = serve_path(2505, "recurrentgemma-9b", tag="rg ")
+    pinned = {key: f"{value / 1e9:.3f}" for key, value in
+              torch.cuda.host_memory_stats().items()
+              if key.endswith(("bytes.current", "bytes.peak"))}
+    phase("rg phase", seconds=f"{time.perf_counter() - t0:.2f}",
+          pinned_host_GB=json.dumps(pinned))
 
     # 5. results ----------------------------------------------------------------
     kernels = [
@@ -1082,6 +1160,13 @@ def main() -> None:
              launches=flash["launches"],
              launches_by_path={"serve": flash["launches"]},
              **flash_main),
+        dict(name="flash_attention_d256", kernel="flash_fwd_sm90_kernel<256>",
+             route="cuda", source="src/repro_torch/csrc/flash_fwd_sm90.cu",
+             replaces="src/repro/kernels/flash_attention.py:116",
+             launches=flash_rg_path["launches"],
+             launches_by_path={"serve_recurrentgemma": flash_rg_path[
+                 "launches"]},
+             **flash_rg),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line)

@@ -21,6 +21,8 @@ import dataclasses
 import time
 from typing import Any
 
+import numpy as np
+
 from repro_torch.core.codes import Code
 from repro_torch.io.backend import Backend, resolve_backend
 
@@ -112,18 +114,22 @@ class CheckpointManager:
 
         degraded = 0
         total = 0
-        parts = []
+        # one writable buffer (the tensors share it), uninitialised and
+        # filled stripe by stripe: the host holds one copy of the
+        # checkpoint, not the stripes' parts and their join at once
+        buf = np.empty(sum(meta.nbytes for meta in sv.metas), np.uint8)
+        off = 0
         for meta in sv.metas:
             for b in range(self.code.k):
                 total += 1
                 if not self.store.available(meta.stripe_id, b):
                     degraded += 1
-            parts.append(self.codec.normal_read(
-                meta, reader_cluster=reader_cluster))
-        buf = bytearray().join(parts)       # writable: tensors share it
-        del parts
-        del buf[sv.manifest.total_bytes:]
-        state = deserialize_tree(buf, sv.manifest, sv.treedef)
+            part = self.codec.normal_read(meta, reader_cluster=reader_cluster)
+            buf[off:off + len(part)] = np.frombuffer(part, np.uint8)
+            off += len(part)
+        state = deserialize_tree(
+            memoryview(buf)[:min(off, sv.manifest.total_bytes)],
+            sv.manifest, sv.treedef)
         tr1 = self.store.traffic
         report = RestoreReport(
             step=step, total_blocks_read=total, degraded_blocks=degraded,

@@ -115,22 +115,31 @@ def _leaf_bytes(leaf) -> tuple[tuple, str, bytes]:
     return tuple(arr.shape), str(arr.dtype), arr.tobytes()
 
 
-def serialize_tree(tree: Any) -> tuple[bytes, Manifest, TreeDef]:
+def _leaf_nbytes(leaf) -> int:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.numel() * leaf.element_size()
+    return np.asarray(leaf).nbytes
+
+
+def serialize_tree(tree: Any) -> tuple[memoryview, Manifest, TreeDef]:
     """-> (buffer, manifest, treedef). Leaves in flatten order; tensors on
-    a device are copied to the host."""
+    a device are copied to the host. The buffer (the reference's bytes,
+    byte for byte, as a writable memoryview) is allocated once,
+    uninitialised, and filled leaf by leaf, so the host holds one copy of
+    the tree beside one leaf's."""
     leaves, skeleton = _flatten(tree)
+    buf = np.empty(sum(_leaf_nbytes(leaf) for _, leaf in leaves), np.uint8)
     entries = []
-    chunks = []
     offset = 0
     for path, leaf in leaves:
         shape, dt, raw = _leaf_bytes(leaf)
         entries.append(("/".join(map(str, path)), shape, dt, offset,
                         len(raw)))
-        chunks.append(raw)
+        buf[offset:offset + len(raw)] = np.frombuffer(raw, np.uint8)
         offset += len(raw)
     treedef = TreeDef(skeleton)
-    return b"".join(chunks), Manifest(tuple(entries), repr(treedef),
-                                      offset), treedef
+    return (memoryview(buf), Manifest(tuple(entries), repr(treedef), offset),
+            treedef)
 
 
 def deserialize_tree(buf: bytes | bytearray | memoryview, manifest: Manifest,

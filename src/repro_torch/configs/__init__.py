@@ -23,14 +23,13 @@ ARCHS = {
 }
 
 #: Architectures the port can build, and what the others wait for.
-PORTED = ("llama3.2-3b",)
+PORTED = ("llama3.2-3b", "recurrentgemma-9b")
 _PENDING = {
     "kimi-k2-1t-a32b": "MoE attention blocks",
     "phi3.5-moe-42b-a6.6b": "MoE attention blocks",
     "qwen1.5-32b": "its configuration module (qkv bias)",
     "minicpm3-4b": "MLA blocks",
     "phi4-mini-3.8b": "its configuration module",
-    "recurrentgemma-9b": "RG-LRU and local-attention blocks",
     "rwkv6-7b": "RWKV6 blocks",
     "llama-3.2-vision-11b": "cross-attention blocks",
     "hubert-xlarge": "an encoder-only front end",

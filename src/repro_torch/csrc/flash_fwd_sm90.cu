@@ -4,7 +4,7 @@
 //   `flash_attention_fwd` (src/repro/kernels/flash_attention.py, body
 //   `_flash_fwd_kernel`) for bf16 inputs; fp32 inputs take the scalar
 //   `flash_fwd_kernel` of flash_attention.cu. For q (B, Hq, Sq, d),
-//   k (B, Hkv, Skv, d), v (B, Hkv, Skv, d), d in {64, 128}, q head h
+//   k (B, Hkv, Skv, d), v (B, Hkv, Skv, d), d in {64, 128, 256}, q head h
 //   reading kv head h / (Hq / Hkv):
 //     out = softmax(mask(q k^T * d^-0.5)) v   in bf16, and
 //     lse = log-sum-exp of each masked score row in fp32, -inf where the
@@ -25,7 +25,8 @@
 //   - Tiles and roles. A persistent grid, one CTA of 3 warpgroups per SM,
 //     walks q tiles of 128 rows of one (batch x q head), longest first (the
 //     causal triangle's last rows first, then across heads, so CTAs
-//     resident together share kv heads in L2); key tiles are 128 wide.
+//     resident together share kv heads in L2); key tiles are 128 wide at
+//     d = 64 and 128, 64 wide at d = 256 (`Tile<D>`).
 //     Warpgroup 0 is the producer: it drops to 24 registers
 //     (`setmaxnreg.dec`) and one thread keeps Q and the K/V ring loaded
 //     with TMA, running ahead into the CTA's next q tile while the
@@ -36,17 +37,21 @@
 //     maps (d, S, B*H), so rows past Sq or Skv are zero-filled per head by
 //     the hardware rather than read from the next head. A 128-byte
 //     swizzle box holds 64 bf16 columns, so a d=128 tile is two boxes of
-//     128 rows x 128 B. The ring has 3 stages of K and V, each with its
-//     own `mbarrier`s (full K, full V: the producer's expect-tx; empty:
-//     256 consumer arrivals); Q has a full and an empty barrier.
+//     128 rows x 128 B (Q's boxes are 128 rows high, K's and V's a key
+//     tile high, each through its own tensor map). The ring has 3 stages
+//     of K and V (2 at d = 256), each with its own `mbarrier`s (full K,
+//     full V: the producer's expect-tx; empty: 256 consumer arrivals); Q
+//     has a full and an empty barrier.
 //   - wgmma. S = Q K^T with both operands K-major in shared memory, fp32
-//     accumulators in registers (m64n128k16, d/16 steps). Softmax runs on
-//     the accumulator fragment: each thread holds 2 rows x 32 columns,
+//     accumulators in registers (m64n128k16, or m64n64k16 at d = 256;
+//     d/16 steps). Softmax runs on the accumulator fragment: each thread
+//     holds 2 rows x 32 columns (16 at d = 256),
 //     the row max is reduced over the quad with two shuffles, m and a
 //     per-thread partial l stay in registers (l is reduced once, at the
 //     end). O += P V uses the register-A form: the S accumulator of 16
 //     keys, packed to bf16x2 pairs, is exactly the A fragment; V is the
-//     MN-major B operand (transpose bit). The O accumulator stays in
+//     MN-major B operand (transpose bit); at d = 256 each key step is two
+//     m64n128k16 products, one per half of O. The O accumulator stays in
 //     registers until the epilogue.
 //   - Ping-pong and overlap. The two consumers take turns on the tensor
 //     cores through two named barriers. In its turn t a warpgroup issues
@@ -69,6 +74,12 @@
 //   = 229,376 B, 11 barriers 88 B, 1,024 B of slack to align the base to
 //   the swizzle's 1,024-byte period: 230,488 B of the 232,448 a block may
 //   have, one CTA per SM. At d=64 every tile is one box: 115,800 B.
+//   - d = 256 (recurrentgemma's local attention). A 128-row tile is
+//     64 KiB there, so Q and three 128-key stages would need 448 KiB: the
+//     key tile halves to 64 and the ring to 2 stages, Q 65,536 B +
+//     2 x (K 32,768 + V 32,768) + 8 barriers + slack = 197,696 B. The
+//     consumer's registers stay those of d = 128: O 128 fp32 (was 64),
+//     S 32 (was 64), P_hi and P_lo 16 each (were 32), 192 in all.
 //   Any Sq, Skv >= 1: a q tile whose rows see no key runs no tile and
 //   writes out = 0, lse = -inf.
 //
@@ -89,29 +100,44 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kBQ = 128;                // query rows per CTA
-constexpr int kBK = 128;                // keys per tile
-constexpr int kStages = 3;              // K/V ring depth
+constexpr int kMaxBK = 128;             // the widest key tile
 constexpr int kThreads = 384;           // producer + 2 consumer warpgroups
 constexpr int kBoxCols = 64;            // bf16 columns in a 128-byte row
-constexpr int kBoxBytes = 128 * 128;    // one box: 128 rows x 128 bytes
+constexpr int kRowBytes = 128;          // one box row: 64 bf16 columns
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Key tile width and K/V ring depth for head dim D: 128 keys and 3 stages
+// where they fit in shared memory, 64 keys and 2 stages at D = 256.
+template <int D>
+struct Tile {
+  static constexpr int kBK = D == 256 ? 64 : 128;
+  static constexpr int kStages = D == 256 ? 2 : 3;
+};
+
 template <int D>
 struct Smem {
+  static constexpr int kBK = Tile<D>::kBK;
+  static constexpr int kStages = Tile<D>::kStages;
   static constexpr int kBoxes = D / kBoxCols;
-  static constexpr int kTile = kBoxes * kBoxBytes;   // 128 rows of Q, K or V
+  static constexpr int kQBox = kBQ * kRowBytes;       // 128 query rows
+  static constexpr int kKBox = kBK * kRowBytes;       // one key tile
+  static constexpr int kQTile = kBoxes * kQBox;
+  static constexpr int kKVTile = kBoxes * kKBox;
   static constexpr int q = 0;
-  static constexpr int kv = q + kTile;   // stage s: K at kv + 2 s kTile, V after
-  static constexpr int bars = kv + kStages * 2 * kTile;
+  // stage s: K at kv + 2 s kKVTile, V after it
+  static constexpr int kv = q + kQTile;
+  static constexpr int bars = kv + kStages * 2 * kKVTile;
   static constexpr int kBars = 2 + 3 * kStages;   // q full/empty, K/V ring
   static constexpr int alloc = bars + kBars * 8 + 1024;
+  static_assert(alloc <= 232448, "shared memory of one block");
 };
 
 // Addresses in the aligned shared-memory block: the K/V ring's tiles and
 // its barriers (q full, then full K, full V and empty per stage, q empty).
 template <int D>
 struct Ring {
+  static constexpr int kStages = Tile<D>::kStages;
   uint32_t base;
   __device__ uint32_t q_full() const { return base + Smem<D>::bars; }
   __device__ uint32_t full_k(int s) const { return q_full() + 8 * (1 + s); }
@@ -125,10 +151,10 @@ struct Ring {
     return q_full() + 8 * (1 + 3 * kStages);
   }
   __device__ uint32_t k_tile(int s) const {
-    return base + Smem<D>::kv + s * 2 * Smem<D>::kTile;
+    return base + Smem<D>::kv + s * 2 * Smem<D>::kKVTile;
   }
   __device__ uint32_t v_tile(int s) const {
-    return k_tile(s) + Smem<D>::kTile;
+    return k_tile(s) + Smem<D>::kKVTile;
   }
 };
 
@@ -168,6 +194,33 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D (64 x 64, fp32) (+)= A B: A and B^T from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  if constexpr (N == 128)
+    wgmma_ss_n128(d, a, b, scale_d);
+  else
+    wgmma_ss_n64(d, a, b, scale_d);
 }
 
 // D (64 x 128, fp32) += A B: A (64 x 16 bf16) from registers, B from
@@ -217,14 +270,23 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
 }
 
+// O (64 x D) += A B for one key step: at D = 256 two products, one per
+// half of O, the second reading V's columns 128.. (`half_b`: the descriptor
+// step to V's third 64-column box)
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], uint32_t a0,
                                          uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint64_t b) {
-  if constexpr (D == 128)
+                                         uint32_t a3, uint64_t b,
+                                         uint64_t half_b) {
+  if constexpr (D == 256) {
+    wgmma_rs_n128(reinterpret_cast<float(&)[64]>(d[0]), a0, a1, a2, a3, b);
+    wgmma_rs_n128(reinterpret_cast<float(&)[64]>(d[64]), a0, a1, a2, a3,
+                  b + half_b);
+  } else if constexpr (D == 128) {
     wgmma_rs_n128(d, a0, a1, a2, a3, b);
-  else
+  } else {
     wgmma_rs_n64(d, a0, a1, a2, a3, b);
+  }
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -254,37 +316,41 @@ __device__ __forceinline__ void turn_pass(int w) {
 // S = Q K^T for a warpgroup's 64 query rows and one key tile (issued, not
 // waited for)
 template <int D>
-__device__ __forceinline__ void issue_qk(float (&sc)[kBK / 2],
+__device__ __forceinline__ void issue_qk(float (&sc)[Tile<D>::kBK / 2],
                                          uint32_t q_rows, uint32_t k_tile) {
-  // one descriptor per operand; a key step moves its start address
+  using L = Smem<D>;
+  // one descriptor per operand; a step of 16 columns moves its start
+  // address, by 32 bytes within a box and by a box height across boxes
   const uint64_t qd = sw128_desc(q_rows, 16, 1024);
   const uint64_t kd = sw128_desc(k_tile, 16, 1024);
   fence_regs(sc);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint64_t off = ((kk / 4) * kBoxBytes + (kk % 4) * 32) >> 4;
-    wgmma_ss_n128(sc, qd + off, kd + off, kk > 0);
+    const uint64_t qoff = ((kk / 4) * L::kQBox + (kk % 4) * 32) >> 4;
+    const uint64_t koff = ((kk / 4) * L::kKBox + (kk % 4) * 32) >> 4;
+    wgmma_ss<L::kBK>(sc, qd + qoff, kd + koff, kk > 0);
   }
   wgmma_commit();
 }
 
 // O += P_hi V + P_lo V for one key tile (issued, not waited for)
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
-                                         const uint32_t (&phi)[kBK / 4],
-                                         const uint32_t (&plo)[kBK / 4],
-                                         uint32_t v_tile) {
-  const uint64_t vd0 = sw128_desc(v_tile, kBoxBytes, 1024);
+__device__ __forceinline__ void issue_pv(
+    float (&o)[D / 2], const uint32_t (&phi)[Tile<D>::kBK / 4],
+    const uint32_t (&plo)[Tile<D>::kBK / 4], uint32_t v_tile) {
+  using L = Smem<D>;
+  const uint64_t vd0 = sw128_desc(v_tile, L::kKBox, 1024);
+  const uint64_t half = (2 * L::kKBox) >> 4;
   fence_regs(o);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-    const uint64_t vd = vd0 + ((kk * 16 * 128) >> 4);    // 16 keys on
+  for (int kk = 0; kk < L::kBK / 16; ++kk) {
+    const uint64_t vd = vd0 + ((kk * 16 * kRowBytes) >> 4);    // 16 keys on
     wgmma_rs<D>(o, phi[4 * kk], phi[4 * kk + 1], phi[4 * kk + 2],
-                phi[4 * kk + 3], vd);
+                phi[4 * kk + 3], vd, half);
     wgmma_rs<D>(o, plo[4 * kk], plo[4 * kk + 1], plo[4 * kk + 2],
-                plo[4 * kk + 3], vd);
+                plo[4 * kk + 3], vd, half);
   }
   wgmma_commit();
 }
@@ -302,7 +368,7 @@ struct Rows {
 // max m and partial sum l; p overwrites s. Returns each row's correction of
 // the accumulator in corr. Touches no O register and has no branch, so it
 // runs while the previous tile's PV is still in flight.
-template <bool kMask>
+template <int kBK, bool kMask>
 __device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2],
                                              float (&m_run)[2],
                                              float (&l_part)[2],
@@ -352,7 +418,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2],
 
 // O *= corr row by row, then P split into the bf16 A fragments of PV:
 // register r of key step kk is the pair (sc[8 kk + 2 r], sc[8 kk + 2 r + 1])
-template <int D>
+template <int D, int kBK = Tile<D>::kBK>
 __device__ __forceinline__ void rescale_and_split(float (&o)[D / 2],
                                                   const float (&corr)[2],
                                                   const float (&sc)[kBK / 2],
@@ -380,7 +446,7 @@ __device__ __forceinline__ void rescale_and_split(float (&o)[D / 2],
 template <int D>
 struct Acc {
   float o[D / 2];
-  uint32_t phi[kBK / 4], plo[kBK / 4];
+  uint32_t phi[Tile<D>::kBK / 4], plo[Tile<D>::kBK / 4];
   float m_run[2], l_part[2];
 };
 
@@ -395,6 +461,7 @@ __device__ __forceinline__ void consumer_turn(Acc<D>& a, const Bars& bars,
                                               const Rows& w, int cw, int r,
                                               int k0, uint32_t q_rows,
                                               float scale) {
+  constexpr int kBK = Tile<D>::kBK, kStages = Tile<D>::kStages;
   // r: the ring position of tile t (it runs on across the CTA's q tiles)
   const int s = r % kStages, sp = (r + kStages - 1) % kStages;
   if constexpr (kQK) mbar_wait(bars.full_k(s), (r / kStages) & 1);
@@ -408,7 +475,7 @@ __device__ __forceinline__ void consumer_turn(Acc<D>& a, const Bars& bars,
   if constexpr (kQK) {
     wgmma_wait<kPV ? 1 : 0>();
     fence_regs(sc);
-    softmax_tile<kMask>(sc, a.m_run, a.l_part, corr, w, k0, scale);
+    softmax_tile<kBK, kMask>(sc, a.m_run, a.l_part, corr, w, k0, scale);
   }
   if constexpr (kPV) {
     wgmma_wait<0>();
@@ -429,6 +496,7 @@ struct Work {
 // Work item `item`, longest first: items run down the q tiles (the causal
 // triangle's longest rows first), and across (batch x q head) within one,
 // so CTAs resident together share kv heads in L2.
+template <int kBK>
 __device__ __forceinline__ Work work_of(int item, int BH, int n_q_tiles,
                                         int Hq, int G, int Sq, int Skv,
                                         int causal, int window) {
@@ -457,6 +525,7 @@ flash_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tm_q,
                       int BH, int Hq, int G, int Sq, int Skv, int causal,
                       int window, float scale) {
   using L = Smem<D>;
+  constexpr int kBK = L::kBK, kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
   const Ring<D> bars{(smem_u32(smem_raw) + 1023) & ~1023u};
   const int n_q_tiles = (Sq + kBQ - 1) / kBQ;
@@ -483,26 +552,26 @@ flash_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tm_q,
     if (threadIdx.x == 0) {
       int nq = 0, r = 0;
       for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-        const Work k = work_of(item, BH, n_q_tiles, Hq, G, Sq, Skv, causal,
-                               window);
+        const Work k = work_of<kBK>(item, BH, n_q_tiles, Hq, G, Sq, Skv,
+                                    causal, window);
         if (k.n_tiles <= 0) continue;
         mbar_wait(bars.q_empty(), (nq & 1) ^ 1);   // last q tile's QK done
-        mbar_expect_tx(bars.q_full(), L::kTile);
+        mbar_expect_tx(bars.q_full(), L::kQTile);
         for (int c = 0; c < L::kBoxes; ++c)
-          tma_load(bars.base + L::q + c * kBoxBytes, &tm_q, bars.q_full(),
+          tma_load(bars.base + L::q + c * L::kQBox, &tm_q, bars.q_full(),
                    c * kBoxCols, k.q0, k.bh);
         ++nq;
         for (int i = 0; i < k.n_tiles; ++i, ++r) {
           const int s = r % kStages;
           mbar_wait(bars.empty(s), ((r / kStages) & 1) ^ 1);
           const int k0 = (k.t_lo + i) * kBK;
-          mbar_expect_tx(bars.full_k(s), L::kTile);
+          mbar_expect_tx(bars.full_k(s), L::kKVTile);
           for (int c = 0; c < L::kBoxes; ++c)
-            tma_load(bars.k_tile(s) + c * kBoxBytes, &tm_k, bars.full_k(s),
+            tma_load(bars.k_tile(s) + c * L::kKBox, &tm_k, bars.full_k(s),
                      c * kBoxCols, k0, k.kvh);
-          mbar_expect_tx(bars.full_v(s), L::kTile);
+          mbar_expect_tx(bars.full_v(s), L::kKVTile);
           for (int c = 0; c < L::kBoxes; ++c)
-            tma_load(bars.v_tile(s) + c * kBoxBytes, &tm_v, bars.full_v(s),
+            tma_load(bars.v_tile(s) + c * L::kKBox, &tm_v, bars.full_v(s),
                      c * kBoxCols, k0, k.kvh);
         }
       }
@@ -513,11 +582,11 @@ flash_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tm_q,
     const int cw = threadIdx.x / 128 - 1;
     const int tid = threadIdx.x % 128;
     const int lane = tid % 32;
-    const uint32_t q_rows = bars.base + L::q + cw * 64 * 128;
+    const uint32_t q_rows = bars.base + L::q + cw * 64 * kRowBytes;
     int nq = 0, r = 0;
     for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-      const Work k = work_of(item, BH, n_q_tiles, Hq, G, Sq, Skv, causal,
-                             window);
+      const Work k = work_of<kBK>(item, BH, n_q_tiles, Hq, G, Sq, Skv,
+                                  causal, window);
       Rows w;
       w.qmin = k.q0 + cw * 64;                        // this warpgroup's rows
       w.row0 = w.qmin + (tid / 32) * 16 + lane / 4;   // and row0 + 8
@@ -597,14 +666,14 @@ flash_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tm_q,
   }
 }
 
-// (D, rows, heads) bf16, row-major: boxes of 64 columns x 128 rows x 1
-// head, 128-byte swizzle, zero fill past `rows`
+// (D, rows, heads) bf16, row-major: boxes of 64 columns x `box_rows` rows
+// x 1 head, 128-byte swizzle, zero fill past `rows`
 bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
-              long long rows, long long heads, int D) {
+              long long rows, long long heads, int D, int box_rows) {
   const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(rows),
                               cuuint64_t(heads)};
   const cuuint64_t strides[2] = {cuuint64_t(D) * 2, cuuint64_t(rows) * D * 2};
-  const cuuint32_t box[3] = {kBoxCols, kBQ, 1};
+  const cuuint32_t box[3] = {kBoxCols, cuuint32_t(box_rows), 1};
   const cuuint32_t step[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                 const_cast<void*>(ptr), dims, strides, box, step,
@@ -621,9 +690,9 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return int(cudaErrorNotSupported);
   CUtensorMap mq, mk, mv;
-  if (!make_map(encode, &mq, q, Sq, B * Hq, D) ||
-      !make_map(encode, &mk, k, Skv, B * Hkv, D) ||
-      !make_map(encode, &mv, v, Skv, B * Hkv, D))
+  if (!make_map(encode, &mq, q, Sq, B * Hq, D, kBQ) ||
+      !make_map(encode, &mk, k, Skv, B * Hkv, D, Tile<D>::kBK) ||
+      !make_map(encode, &mv, v, Skv, B * Hkv, D, Tile<D>::kBK))
     return int(cudaErrorInvalidValue);
   auto* fn = &flash_fwd_sm90_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -645,7 +714,8 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
 
 }  // namespace
 
-// bf16 q, k, v with dk = dv = d in {64, 128}; pointers 16-byte aligned.
+// bf16 q, k, v with dk = dv = d in {64, 128, 256}; pointers 16-byte
+// aligned.
 extern "C" int repro_flash_fwd_bf16(const void* q, const void* k,
                                     const void* v, void* out, void* lse,
                                     long long B, long long Hq, long long Hkv,
@@ -654,7 +724,7 @@ extern "C" int repro_flash_fwd_bf16(const void* q, const void* k,
                                     void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 ||
       Skv <= 0 || window < 0 || Sq > 0x7fffffffLL - kBQ ||
-      Skv > 0x7fffffffLL - kBK ||
+      Skv > 0x7fffffffLL - kMaxBK ||
       B * Hq * ((Sq + kBQ - 1) / kBQ) > 0x7fffffffLL)
     return int(cudaErrorInvalidValue);
   if (window >= Sq) window = 0;         // masks nothing any row could see
@@ -664,6 +734,9 @@ extern "C" int repro_flash_fwd_bf16(const void* q, const void* k,
                       scale, st);
   if (d == 128)
     return launch<128>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal,
+                       window, scale, st);
+  if (d == 256)
+    return launch<256>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal,
                        window, scale, st);
   return int(cudaErrorInvalidValue);
 }

@@ -2,15 +2,16 @@
 sliding-window masks, fully masked tiles skipped.
 
 Port of the Pallas kernel `repro.kernels.flash_attention.flash_attention_fwd`
-as two hand-written CUDA kernels, routed by dtype, for (dk, dv) in
-{(64, 64), (128, 128)}:
+as two hand-written CUDA kernels, routed by dtype:
 
 - bf16: `flash_fwd_sm90_kernel` (`csrc/flash_fwd_sm90.cu`), built for
-  Hopper: a persistent grid whose CTAs walk 128-row q tiles over 128-key
-  tiles, one producer warpgroup feeding a TMA ring and two consumer
-  warpgroups taking turns on `wgmma`;
+  Hopper at (dk, dv) in {(64, 64), (128, 128), (256, 256)}: a persistent
+  grid whose CTAs walk 128-row q tiles over key tiles (128 keys, or 64 at
+  head dim 256), one producer warpgroup feeding a TMA ring and two
+  consumer warpgroups taking turns on `wgmma`;
 - fp32: `flash_fwd_kernel` (`csrc/flash_attention.cu`), scalar FMA, 64 x 64
-  tiles (wgmma has no full-fp32 product).
+  tiles (wgmma has no full-fp32 product), at (64, 64) and (128, 128) only:
+  its tiles do not fit at 256 (ROADMAP B6).
 
 Both take any Sq, Skv >= 1 (the Pallas kernel needs them to divide its
 blocks), so the port's CUDA path has no branch to a plain version.
@@ -33,8 +34,10 @@ from . import _build
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
 NEG_INF = -1e30
-#: (dk, dv) pairs the CUDA kernel is built for.
-HEAD_DIMS = ((64, 64), (128, 128))
+#: (dk, dv) pairs the bf16 CUDA kernel is built for.
+HEAD_DIMS = ((64, 64), (128, 128), (256, 256))
+#: (dk, dv) pairs the fp32 CUDA kernel is built for.
+FP32_HEAD_DIMS = ((64, 64), (128, 128))
 #: C entry point of the kernel for each input dtype.
 _ENTRY = {torch.float32: "repro_flash_fwd_f32",
           torch.bfloat16: "repro_flash_fwd_bf16"}
@@ -177,15 +180,19 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got {q.device}")
     B, Hq, Sq, dk = q.shape
     Hkv, Skv, dv = k.shape[1], k.shape[2], v.shape[-1]
-    if (dk, dv) not in HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention_fwd: no CUDA kernel for head dims dk={dk}, "
-            f"dv={dv} (built for {HEAD_DIMS}); the forward at dk = dv = "
-            f"256 is ROADMAP B5, and the model layer routes head dims that "
-            f"are not multiples of 128 blockwise")
     if q.dtype not in _ENTRY:
         raise TypeError(f"flash_attention_fwd takes bf16 or fp32 on CUDA, "
                         f"got {q.dtype}")
+    if (dk, dv) not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention_fwd: no CUDA kernel for head dims dk={dk}, "
+            f"dv={dv} (built for {HEAD_DIMS}); the model layer routes head "
+            f"dims that are not multiples of 128 blockwise (ROADMAP C1)")
+    if q.dtype == torch.float32 and (dk, dv) not in FP32_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention_fwd: no fp32 CUDA kernel for head dims "
+            f"dk={dk}, dv={dv} (built for {FP32_HEAD_DIMS}); the fp32 "
+            f"forward at 256 is ROADMAP B6")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash_attention_fwd needs a contiguous, "

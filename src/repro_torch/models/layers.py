@@ -1,8 +1,10 @@
-"""Neural blocks of the port, dense subset (port of `repro.models.layers`).
+"""Neural blocks of the port (port of `repro.models.layers`).
 
-The `attn` block kind: RMSNorm, rotary embeddings, GQA self-attention with
-ghost-head padding, SwiGLU. Activations are bf16, statistics (norms,
-softmax) accumulate in fp32, as in the reference. Weights keep the
+The `attn` and `local_attn` block kinds: RMSNorm, rotary embeddings, GQA
+self-attention with ghost-head padding (windowed, with a rotating window
+cache, for `local_attn`), SwiGLU; and the `rg` kind's Griffin recurrent
+block (RG-LRU). Activations are bf16, statistics (norms, softmax, the
+recurrence) accumulate in fp32, as in the reference. Weights keep the
 reference's layout (`x @ W`, W of shape (in, out)) so that a parameter
 tree means the same bytes in both packages.
 
@@ -23,11 +25,12 @@ import threading
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import flash_attention as fa
 
-from .config import ModelConfig
+from .config import ModelConfig, _rg_width
 
 
 # ---------------------------------------------------------------------------
@@ -113,9 +116,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Hq, Sq, dk), k: (B, Hkv, Skv, dk), v: (B, Hkv, Skv, dv) ->
     (B, Hq, Sq, dv). Forward only: the training slice brings the
     backward. Routed as the reference's `_flash_fn` routes: (dk, dv) in
-    `fa.HEAD_DIMS`, and every dk that is a multiple of 128, go to the flash
-    kernel's wrapper, which raises on the card for a pair it lacks
-    (dk = dv = 256, ROADMAP B5); every other head dim takes the blockwise
+    `fa.HEAD_DIMS` (64, 128 and 256), and every dk that is a multiple of
+    128, go to the flash kernel's wrapper, which raises on the card for a
+    pair it lacks; every other head dim takes the blockwise
     forward `fa.flash_attention_fwd_plain`, the counterpart of the
     reference's jnp `_flash_fwd_impl`, counted in `blockwise_calls`."""
     global blockwise_calls
@@ -187,13 +190,14 @@ class Attention(nn.Module):
 
 
 def attention_block(params: Attention, x: torch.Tensor, cfg: ModelConfig,
-                    mode: str, cache: dict | None,
-                    pos: int | None) -> tuple[torch.Tensor, dict | None]:
-    """x: (B, S, D). Returns (attn_out, new_cache). Full attention only:
-    local attention's window caches come with ROADMAP A9. In decode mode
-    the new token's k/v are written into `cache` in place (the reference
-    returns updated copies), and the same tensors come back as the new
-    cache."""
+                    mode: str, cache: dict | None, pos: int | None, *,
+                    window: int = 0) -> tuple[torch.Tensor, dict | None]:
+    """x: (B, S, D). Returns (attn_out, new_cache). With `window` (the
+    `local_attn` kind) queries see the last `window` keys, and the cache
+    is a rotating window: position p lives in slot p % window. In decode
+    mode the new token's k/v are written into `cache` in place (the
+    reference returns updated copies), and the same tensors come back as
+    the new cache."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     hq, hkv = cfg.num_heads_padded, cfg.num_kv_heads_padded
@@ -210,16 +214,26 @@ def attention_block(params: Attention, x: torch.Tensor, cfg: ModelConfig,
         where = torch.arange(pos, pos + 1, device=x.device)
         q = apply_rope(q, where, cfg.rope_theta)
         k = apply_rope(k, where, cfg.rope_theta)
-        k_cache = _write_cache(cache["k"], k, pos)
-        v_cache = _write_cache(cache["v"], v, pos)
-        out = decode_attention(q, k_cache, v_cache, pos)
+        slot = pos % window if window else pos
+        k_cache = _write_cache(cache["k"], k, slot)
+        v_cache = _write_cache(cache["v"], v, slot)
+        if window:
+            out = _decode_window(q, k_cache, v_cache, pos, window)
+        else:
+            out = decode_attention(q, k_cache, v_cache, pos)
         new_cache = {"k": k_cache, "v": v_cache}
     else:
         positions = torch.arange(S, device=x.device)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        out = flash_attention(q, k, v, causal=cfg.causal)
-        new_cache = {"k": k, "v": v} if mode == "prefill" else None
+        out = flash_attention(q, k, v, causal=cfg.causal, window=window)
+        new_cache = None
+        if mode == "prefill" and window:
+            keep = min(window, S)
+            new_cache = {"k": _roll_tail(k, keep, window),
+                         "v": _roll_tail(v, keep, window)}
+        elif mode == "prefill":
+            new_cache = {"k": k, "v": v}
 
     out = out.transpose(1, 2).reshape(B, S, hq * hd)
     return out @ params.wo, new_cache
@@ -230,3 +244,161 @@ def _write_cache(cache_arr: torch.Tensor, new: torch.Tensor,
     """cache: (B, H, S_max, hd); new: (B, H, 1, hd). Writes in place."""
     cache_arr[:, :, slot:slot + 1] = new.to(cache_arr.dtype)
     return cache_arr
+
+
+def _roll_tail(kv: torch.Tensor, keep: int, window: int) -> torch.Tensor:
+    """The last `keep` entries of kv (B, H, S, hd) as a rotating window
+    cache of `window` slots, zero-padded, in which position p sits in slot
+    p % window."""
+    B, H, S, hd = kv.shape
+    tail = kv[:, :, S - keep:]
+    if keep < window:
+        tail = F.pad(tail, (0, 0, 0, window - keep))
+    # the global position of tail[j] is S - keep + j
+    return torch.roll(tail, shifts=(S - keep) % window, dims=2)
+
+
+def _decode_window(q: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, pos: int,
+                   window: int) -> torch.Tensor:
+    """Single-token attention against a rotating window cache: slot j
+    holds the position p with p % window == j, pos - window < p <= pos,
+    so slots are compared by their age (pos - p), not by position."""
+    B, Hq, _, dk = q.shape
+    Hkv = k_cache.shape[1]
+    G = Hq // Hkv
+    qg = q.reshape(B, Hkv, G, 1, dk)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(),
+                     k_cache.float()) * dk ** -0.5
+    j = torch.arange(window, device=q.device)
+    age = (pos % window - j) % window
+    s = torch.where(age <= min(pos, window - 1), s, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v_cache.dtype), v_cache)
+    return out.reshape(B, Hq, 1, v_cache.shape[-1]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU recurrent block (RecurrentGemma / Griffin)
+# ---------------------------------------------------------------------------
+
+class RG(nn.Module):
+    """The Griffin recurrent block's weights: in-projections `w_x` and
+    `w_gate` (d, dr), the causal conv of width 4 (`conv_w` (4, dr),
+    `conv_b`), the RG-LRU gates `w_rg`, `w_ig` (dr, dr), the fp32 decay
+    parameter `lam` (dr,) and `w_out` (dr, d). Built with a generator it
+    is the reference's `init_rg`."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None,
+                 device: torch.device | str = "cuda"):
+        super().__init__()
+        d = cfg.d_model
+        dr = _rg_width(d)
+        dev = gen.device if gen is not None else torch.device(device)
+
+        def weight(*shape, scale):
+            w = (_normal(gen, shape, scale) if gen is not None else
+                 torch.empty(shape, dtype=torch.bfloat16, device=dev))
+            return nn.Parameter(w, requires_grad=False)
+        self.w_x = weight(d, dr, scale=d ** -0.5)
+        self.w_gate = weight(d, dr, scale=d ** -0.5)
+        self.conv_w = weight(4, dr, scale=0.5)
+        self.conv_b = nn.Parameter(
+            torch.zeros((dr,), dtype=torch.bfloat16, device=dev),
+            requires_grad=False)
+        self.w_rg = weight(dr, dr, scale=dr ** -0.5)
+        self.w_ig = weight(dr, dr, scale=dr ** -0.5)
+        # softplus^-1 of 3..8, so a = sigmoid-gated decay starts near
+        # 0.9..0.999
+        lam = torch.log(torch.expm1(torch.linspace(3.0, 8.0, dr)))
+        self.lam = nn.Parameter(lam.to(dev), requires_grad=False)
+        self.w_out = weight(dr, d, scale=dr ** -0.5)
+
+
+def _rg_ab(params: RG, u: torch.Tensor
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-step decay a_t and input term b_t in fp32. u: (..., dr)."""
+    uf = u.float()
+    r = torch.sigmoid(uf @ params.w_rg.float())
+    i = torch.sigmoid(uf @ params.w_ig.float())
+    log_a = -8.0 * r * F.softplus(params.lam)                # c = 8
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) \
+        * (i * uf)
+    return a, b
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """h_t = a_t h_{t-1} + b_t from h_{-1} = 0 along axis 1, for all t at
+    once: returns (prod a_0..a_t, h_t). The log-depth odd/even recursion
+    of `jax.lax.associative_scan` (which the reference calls), step for
+    step, so the sums run in its order: about 3 log2(S) tensor ops instead
+    of S sequential steps."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+
+    def combine(a1, b1, a2, b2):
+        return a1 * a2, a2 * b1 + b2
+
+    # adjacent pairs (0, 1), (2, 3), ... reduced, then scanned
+    odd_a, odd_b = linear_scan(*combine(a[:, 0:n - 1:2], b[:, 0:n - 1:2],
+                                        a[:, 1::2], b[:, 1::2]))
+    if n % 2 == 0:
+        even_a, even_b = combine(odd_a[:, :-1], odd_b[:, :-1],
+                                 a[:, 2::2], b[:, 2::2])
+    else:
+        even_a, even_b = combine(odd_a, odd_b, a[:, 2::2], b[:, 2::2])
+    even_a = torch.cat([a[:, :1], even_a], dim=1)
+    even_b = torch.cat([b[:, :1], even_b], dim=1)
+    return _interleave(even_a, odd_a), _interleave(even_b, odd_b)
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """even[0], odd[0], even[1], ... along axis 1 (even may be one longer)."""
+    out = even.new_empty((even.shape[0], even.shape[1] + odd.shape[1],
+                          *even.shape[2:]))
+    out[:, 0::2] = even
+    out[:, 1::2] = odd
+    return out
+
+
+def rg_block(params: RG, x: torch.Tensor, mode: str,
+             cache: dict | None) -> tuple[torch.Tensor, dict | None]:
+    """Griffin recurrent block: in-projections -> causal conv4 -> RG-LRU ->
+    gelu gate -> out-projection. x: (B, S, D). Returns (out, new_cache).
+    In decode mode (S = 1) the recurrence state (fp32) and the conv's last
+    three inputs are written into `cache` in place, and the same tensors
+    come back as the new cache; the step computes what a prefill computes
+    at its last position, conv rounding included."""
+    B, S, _ = x.shape
+    u = x @ params.w_x
+    g = x @ params.w_gate
+    if mode == "decode":
+        window = torch.cat([cache["conv"], u], dim=1)       # (B, 4, dr)
+        # the prefill's arithmetic below, for its last position: four
+        # bf16 products added in order. (The reference's decode contracts
+        # the window in one einsum and rounds once, so its decode and
+        # prefill disagree on the conv by a bf16 rounding, which 26 rg
+        # layers grow to 0.057 of max |logit| at recurrentgemma-9b's full
+        # width.)
+        cu = sum(params.conv_w[j] * window[:, j] for j in range(4)) \
+            + params.conv_b
+        a, b = _rg_ab(params, cu)
+        h = a * cache["state"] + b                          # (B, dr)
+        cache["state"].copy_(h)
+        cache["conv"].copy_(window[:, 1:])
+        new_cache = cache
+        h = h[:, None]
+    else:
+        # causal conv of width 4 as shifted adds, in bf16 as the reference
+        cu = sum(params.conv_w[j] * F.pad(u, (0, 0, 3 - j, 0))[:, :S]
+                 for j in range(4)) + params.conv_b
+        a, b = _rg_ab(params, cu)                           # (B, S, dr)
+        _, h = linear_scan(a, b)
+        new_cache = ({"state": h[:, -1], "conv": u[:, -3:]}
+                     if mode == "prefill" else None)
+    gate = F.gelu(g.float(), approximate="tanh").to(x.dtype)
+    out = h.to(x.dtype) * gate
+    return out @ params.w_out, new_cache

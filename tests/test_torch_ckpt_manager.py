@@ -2,10 +2,12 @@
 reference's, on the CPU. Both are byte paths: buffers, manifests and
 restored tensors must be equal, byte for byte.
 
-The weights are the reference's `init_params` for llama3.2 SMOKE, carried
-into the port with `params_from_jax`; the scenario (code, topology, block
-size, failed node) is the reference's restart drill
-(`repro.launch.train`): save, lose a node, restore degraded, rebuild.
+The weights are the reference's `init_params` for llama3.2 SMOKE (every
+leaf bf16) and for recurrentgemma SMOKE (bf16 leaves beside the rg
+blocks' fp32 `lam`), carried into the port with `params_from_jax`; the
+scenario (code, topology, block size, failed node) is the reference's
+restart drill (`repro.launch.train`): save, lose a node, restore
+degraded, rebuild.
 """
 import jax
 import jax.numpy as jnp
@@ -38,16 +40,34 @@ def _bits(t: torch.Tensor) -> np.ndarray:
             if t.dtype == torch.bfloat16 else t.numpy())
 
 
-@pytest.fixture(scope="module")
-def weights():
+def _weights(arch):
     """(reference tree, the port's tree of the same weights)."""
-    params = ref_init_params(ref_get_config("llama3.2-3b", smoke=True),
+    params = ref_init_params(ref_get_config(arch, smoke=True),
                              jax.random.PRNGKey(0))
     host = jax.tree_util.tree_map(
         lambda a: (np.asarray(a).view(np.uint16) if a.dtype == jnp.bfloat16
                    else np.asarray(a)), params)
-    model = params_from_jax(get_config("llama3.2-3b", smoke=True), host, "cpu")
+    model = params_from_jax(get_config(arch, smoke=True), host, "cpu")
     return params, params_to_tree(model)
+
+
+@pytest.fixture(scope="module")
+def weights():
+    return _weights("llama3.2-3b")
+
+
+@pytest.fixture(scope="module")
+def rg_weights():
+    """recurrentgemma SMOKE: fp32 `lam` leaves beside bf16 ones."""
+    return _weights("recurrentgemma-9b")
+
+
+def _trees(which, weights, rg_weights):
+    if which == "weights":
+        return weights
+    if which == "rg_weights":
+        return rg_weights
+    return _mixed(), _mixed_torch(_mixed())
 
 
 def _mixed():
@@ -76,10 +96,9 @@ def _mixed_torch(tree):
             "b": conv(tree["b"])}
 
 
-@pytest.mark.parametrize("which", ["weights", "mixed"])
-def test_serialize_is_byte_equal(weights, which):
-    ref_tree, port_tree = (weights if which == "weights"
-                           else (_mixed(), _mixed_torch(_mixed())))
+@pytest.mark.parametrize("which", ["weights", "mixed", "rg_weights"])
+def test_serialize_is_byte_equal(weights, rg_weights, which):
+    ref_tree, port_tree = _trees(which, weights, rg_weights)
     want_buf, want_man, _ = ref_serialize(ref_tree)
     buf, man, _ = serialize_tree(port_tree)
     assert buf == want_buf
@@ -89,12 +108,17 @@ def test_serialize_is_byte_equal(weights, which):
         assert man.entries[0][0] == "embed"
         assert any(e[0] == "segments/0/0/attn/wq" and e[2] == "bfloat16"
                    for e in man.entries)
+    if which == "rg_weights":
+        dtypes = {e[0]: e[2] for e in man.entries}
+        assert dtypes["segments/0/0/rg/lam"] == "float32"
+        assert dtypes["segments/1/1/rg/lam"] == "float32"
+        assert dtypes["segments/0/0/rg/w_rg"] == "bfloat16"
+        assert dtypes["segments/0/2/attn/wq"] == "bfloat16"
 
 
-@pytest.mark.parametrize("which", ["weights", "mixed"])
-def test_each_package_reads_the_others_buffer(weights, which):
-    ref_tree, port_tree = (weights if which == "weights"
-                           else (_mixed(), _mixed_torch(_mixed())))
+@pytest.mark.parametrize("which", ["weights", "mixed", "rg_weights"])
+def test_each_package_reads_the_others_buffer(weights, rg_weights, which):
+    ref_tree, port_tree = _trees(which, weights, rg_weights)
     ref_buf, ref_man, ref_treedef = ref_serialize(ref_tree)
     buf, man, treedef = serialize_tree(port_tree)
     # the port reads the reference's buffer through its JSON manifest
@@ -208,3 +232,30 @@ def test_manager_without_a_code_chooses_the_references(weights):
     assert report.degraded_blocks == 0
     assert all(np.array_equal(_bits(a), _bits(b)) for a, b in zip(
         jax.tree_util.tree_leaves(tree), jax.tree_util.tree_leaves(got)))
+
+
+def test_mixed_dtype_checkpoint_restores_degraded_across_packages(
+        rg_weights):
+    """recurrentgemma's tree (fp32 `lam` among bf16 leaves) through both
+    managers: the same blocks land, and after one node is lost each
+    package restores degraded the leaves the other saved, byte for byte,
+    with zero cross-cluster bytes."""
+    drill = Drill(rg_weights)
+    for key, data in drill.ref.store._blocks.items():
+        assert bytes(drill.port.store._blocks[key]) == bytes(data), key
+    drill.fail(0, 0)
+    got, report = drill.port.restore()
+    want, ref_report = drill.ref.restore()
+    assert report.degraded_blocks == ref_report.degraded_blocks > 0
+    assert report.cross_cluster_bytes == ref_report.cross_cluster_bytes == 0
+    dtypes = set()
+    for a, b, c in zip(jax.tree_util.tree_leaves(drill.tree),
+                       jax.tree_util.tree_leaves(got),
+                       jax.tree_util.tree_leaves(want), strict=True):
+        assert b.dtype == a.dtype and b.shape == a.shape
+        dtypes.add(a.dtype)
+        c = np.asarray(c)
+        c = c.view(np.uint16) if c.dtype == jnp.bfloat16 else c
+        assert np.array_equal(_bits(a), _bits(b))
+        assert np.array_equal(_bits(b), c)
+    assert dtypes == {torch.bfloat16, torch.float32}

@@ -149,6 +149,20 @@ FLASH_CASES = [
     # tiles) that see no key write out = 0 and lse = -inf
     (False, 4, 1, 2, 1, 40, 8, 64, torch.bfloat16),
     (False, 4, 1, 2, 1, 400, 8, 128, torch.bfloat16),
+    # head dim 256 (recurrentgemma's local attention, MQA): the serve
+    # shape, then the 64-key tile's edges, the 128-row q tile's edges, a
+    # window narrower than a key tile, Sq != Skv, one token, dead rows
+    (True, 2048, 2, 16, 1, 3968, 3968, 256, torch.bfloat16),
+    (True, 0, 1, 4, 1, 63, 63, 256, torch.bfloat16),
+    (True, 0, 1, 4, 1, 64, 64, 256, torch.bfloat16),
+    (True, 0, 1, 4, 1, 65, 65, 256, torch.bfloat16),
+    (True, 0, 1, 4, 1, 127, 127, 256, torch.bfloat16),
+    (True, 0, 1, 4, 1, 128, 128, 256, torch.bfloat16),
+    (True, 0, 1, 4, 1, 129, 129, 256, torch.bfloat16),
+    (True, 40, 1, 16, 1, 300, 300, 256, torch.bfloat16),
+    (False, 0, 1, 4, 2, 100, 333, 256, torch.bfloat16),
+    (True, 0, 2, 16, 1, 1, 1, 256, torch.bfloat16),
+    (False, 4, 1, 2, 1, 400, 8, 256, torch.bfloat16),
 ]
 
 
@@ -176,11 +190,17 @@ def test_flash_matches_plain(card, causal, window, B, Hq, Hkv, Sq, Skv, d,
     assert (lse - want_lse)[~dead].abs().max().item() <= lse_tol
 
 
-def test_flash_head_dim_outside_the_kernel_raises(card):
-    q, k, v = (t.to(card) for t in _qkv(0, 1, 2, 1, 64, 64, 96,
-                                        torch.bfloat16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("d,dtype,item", [
+    (96, torch.bfloat16, "ROADMAP C1"),     # no kernel; the layer routes it
+    (384, torch.bfloat16, "ROADMAP C1"),    # a multiple of 128, no kernel
+    (256, torch.float32, "ROADMAP B6"),     # the fp32 kernel stops at 128
+])
+def test_flash_head_dim_outside_the_kernel_raises(card, d, dtype, item):
+    q, k, v = (t.to(card) for t in _qkv(0, 1, 2, 1, 64, 64, d, dtype))
+    fak.reset_counts()
+    with pytest.raises(NotImplementedError, match=item):
         fak.flash_attention_fwd(q, k, v)
+    assert (fak.launches, fak.plain_calls) == (0, 0)
 
 
 def test_flash_counts_launches_only_on_the_card(card):
@@ -232,6 +252,51 @@ def test_smoke_model_on_the_card_matches_the_cpu(card):
         .item() < 5e-2 * scale
 
 
+@pytest.mark.parametrize("head_dim", [16, 256])
+def test_recurrentgemma_smoke_on_the_card_matches_the_cpu(card, head_dim):
+    """recurrentgemma SMOKE (rg, rg, local_attn, rg, rg; window 8) on the
+    card against the same weights on the CPU, 40 tokens: train logits, and
+    prefill + decode steps past the window, within 5e-2 of max |logit|.
+    At head dim 16 the local attention runs blockwise; at 256 it launches
+    the flash kernel, once per prefill."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache, layers
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b", smoke=True),
+                              head_dim=head_dim)
+    host = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    dev = params_from_jax(cfg, params_to_tree(host), card)
+    tokens = torch.from_numpy(
+        np.random.default_rng(1).integers(0, 512, (2, 40)))
+    fak.reset_counts()
+    layers.reset_blockwise_calls()
+    got, _, _ = forward(dev, tokens.to(card), mode="train")
+    want, _, _ = forward(host, tokens, mode="train")
+    kernel = head_dim == 256
+    assert (fak.launches, layers.blockwise_calls) == \
+        ((1, 0) if kernel else (0, 2))      # host: blockwise at 16
+    scale = want.float().abs().max().item()
+    assert (got.cpu().float() - want.float()).abs().max().item() < 5e-2 * scale
+
+    # prefill 30, then 10 decode steps (past the window of 8) on the card
+    _, cache, _ = forward(dev, tokens[:, :30].to(card), mode="prefill")
+    cache = pad_cache_to(cache, cfg, 40)
+    for i in range(30, 40):
+        step, cache, _ = forward(dev, tokens[:, i:i + 1].to(card),
+                                 mode="decode", cache=cache, pos=i)
+        assert (step[:, 0].cpu().float() - want[:, i].float()).abs().max() \
+            .item() < 5e-2 * scale
+    # and from a zeroed cache on the card, token by token
+    cache = init_cache(cfg, 2, 40, device=card)
+    for i in range(12):
+        step, cache, _ = forward(dev, tokens[:, i:i + 1].to(card),
+                                 mode="decode", cache=cache, pos=i)
+    assert (step[:, 0].cpu().float() - want[:, 11].float()).abs().max() \
+        .item() < 5e-2 * scale
+
+
 @pytest.mark.parametrize("d", [16, 80])
 def test_layer_off_the_kernel_head_dims_on_the_card(card, d):
     """A head dim the flash kernel lacks goes through the layer on the card
@@ -251,18 +316,23 @@ def test_layer_off_the_kernel_head_dims_on_the_card(card, d):
     assert (out.cpu().float() - want.float()).abs().max().item() <= 2e-2
 
 
-def test_layer_head_dim_256_on_the_card_raises(card):
+def test_layer_head_dim_256_on_the_card_launches_the_kernel(card):
     """dk = dv = 256 is a multiple of 128, which the reference hands its
-    Pallas kernel: the layer hands it to the flash wrapper, which has no
-    kernel for it yet and raises naming ROADMAP B5."""
+    Pallas kernel: the layer hands it to the flash wrapper, which launches
+    the Hopper kernel once (no blockwise call, no plain call), windowed as
+    recurrentgemma's local attention is."""
     from repro_torch.models import layers
 
-    q, k, v = (t.to(card) for t in _qkv(0, 1, 2, 1, 64, 64, 256,
+    q, k, v = (t.to(card) for t in _qkv(0, 1, 4, 1, 300, 300, 256,
                                         torch.bfloat16))
+    fak.reset_counts()
     layers.reset_blockwise_calls()
-    with pytest.raises(NotImplementedError, match="ROADMAP B5"):
-        layers.flash_attention(q, k, v, causal=True)
-    assert layers.blockwise_calls == 0
+    out = layers.flash_attention(q, k, v, causal=True, window=100)
+    torch.cuda.synchronize()
+    assert (fak.launches, fak.plain_calls, layers.blockwise_calls) == \
+        (1, 0, 0)
+    want, _ = fak.flash_attention_fwd_plain(q, k, v, causal=True, window=100)
+    assert (out.float() - want.float()).abs().max().item() <= 2e-2
 
 
 def test_serve_smoke_arch_on_the_card(card):

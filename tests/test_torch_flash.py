@@ -24,6 +24,9 @@ FLASH_CASES = [
     (True, 0, 2, 4, 2, 256, 256, 128, 128, 64, 128, "bfloat16"),
     (False, 0, 1, 2, 2, 128, 256, 128, 128, 128, 64, "float32"),
     (True, 128, 1, 2, 1, 512, 512, 128, 128, 128, 128, "float32"),
+    # head dim 256 (recurrentgemma's local attention: MQA, windowed)
+    (True, 96, 1, 4, 1, 256, 256, 256, 256, 128, 128, "bfloat16"),
+    (True, 96, 1, 4, 1, 256, 256, 256, 256, 128, 128, "float32"),
 ]
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -105,6 +108,13 @@ def test_bounds_count_the_unmasked_pairs():
     assert flops == 4 * 32 * (2048 * 2049 // 2) * 4 * 128
     assert fak.bound_bytes(4, 32, 8, 2048, 2048, 128, 128, 2) == (
         2 * (4 * 32 * 2048 * 256 + 4 * 8 * 2048 * 256) + 4 * 4 * 32 * 2048)
+    # recurrentgemma's prefill: B=2, Hq=16, Hkv=1, S=3968, d=256, causal,
+    # window 2048: 197.6 GFLOP over the pairs the window keeps
+    pairs = 2048 * 2049 // 2 + (3968 - 2048) * 2048
+    assert fak.unmasked_pairs(3968, 3968, True, 2048) == pairs
+    assert fak.bound_flops(2, 16, 3968, 3968, 256, 256, causal=True,
+                           window=2048) == 2 * 16 * pairs * 4 * 256 \
+        == 197_602_050_048
 
 
 def test_wrapper_rejects_what_it_cannot_take():
@@ -121,8 +131,9 @@ def test_wrapper_rejects_what_it_cannot_take():
 
 
 # causal, window, B, Hq, Hkv, Sq, Skv, head dim: the SMOKE configs' 16,
-# hubert's 80 and kimi's 112 have no flash kernel; 64 has one; 256 is a
-# multiple of 128, which the reference hands its Pallas kernel
+# hubert's 80 and kimi's 112 have no flash kernel; 64 has one; 256
+# (recurrentgemma) has one and is a multiple of 128, which the reference
+# hands its Pallas kernel
 ROUTE_CASES = [
     (True, 0, 2, 6, 2, 24, 24, 16), (True, 0, 1, 4, 2, 1500, 1500, 16),
     (False, 0, 1, 2, 1, 40, 90, 80), (True, 7, 1, 4, 4, 33, 33, 112),

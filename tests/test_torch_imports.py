@@ -28,6 +28,7 @@ SLICE_MODULES = [
     "repro_torch.analysis", "repro_torch.analysis.hazards",
     "repro_torch.io.engine", "repro_torch.io.backend",
     "repro_torch.io.frontend", "repro_torch.io.workload",
+    "repro_torch.configs.recurrentgemma_9b", "repro_torch.models.layers",
 ]
 
 _PROBE = r"""

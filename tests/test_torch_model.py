@@ -1,4 +1,4 @@
-"""The port's dense model and server against the reference, on the CPU.
+"""The port's models and server against the reference, on the CPU.
 
 The reference's `init_params(cfg, PRNGKey(0))` weights go into the port
 through `params_from_jax`; the same token ids (numpy, from a seed) go
@@ -8,7 +8,11 @@ takes, both run their blockwise attention (the reference's jnp
 round every matmul to bf16: logits must agree within 5e-2 of max |logit|,
 the bound `tests/test_archs.py` holds decode against train with. Measured
 when this test was written: 0.0124 (train) and 0.0100 (decode) of max
-|logit| at llama3.2 SMOKE, 0.0103 and 0.0061 with ghost heads.
+|logit| at llama3.2 SMOKE, 0.0103 and 0.0061 with ghost heads; at
+recurrentgemma SMOKE (rg, rg, local_attn, rg, rg; window 8) 0.0320 and
+0.0153, and 0.0196 and 0.0133 at head dim 256, which takes the flash
+kernel's wrapper (its plain version on the CPU), as the reference hands
+it its Pallas kernel on a TPU.
 """
 import dataclasses
 
@@ -23,7 +27,7 @@ from repro.models import forward as ref_forward
 from repro.models import init_params as ref_init_params
 from repro.models.model import abstract_params as ref_abstract_params
 from repro.models.model import pad_cache_to as ref_pad_cache_to
-from repro_torch.configs import all_archs, get_config
+from repro_torch.configs import PORTED, all_archs, get_config
 from repro_torch.kernels import flash_attention as fak
 from repro_torch.launch import serve
 from repro_torch.models import (abstract_params, forward, init_cache,
@@ -34,16 +38,35 @@ TOL = 5e-2
 S = 24
 
 
-def _configs(pad: int):
-    """(reference, port) SMOKE configs, with ghost heads when pad > 0:
-    6 q heads padded to 8 over 2 kv heads."""
-    ref = ref_get_config("llama3.2-3b", smoke=True)
-    port = get_config("llama3.2-3b", smoke=True)
+def _configs(pad: int, arch: str = "llama3.2-3b", **changes):
+    """(reference, port) SMOKE configs of `arch`, with ghost heads when
+    pad > 0 (llama: 6 q heads padded to 8 over 2 kv heads) and any other
+    field `changes` names (a name is given to the changed config)."""
+    ref = ref_get_config(arch, smoke=True)
+    port = get_config(arch, smoke=True)
     if pad:
-        ref = dataclasses.replace(ref, name="llama3.2-ghost", tp_pad_heads=pad)
-        port = dataclasses.replace(port, name="llama3.2-ghost",
-                                   tp_pad_heads=pad)
+        changes = dict(changes, name="llama3.2-ghost", tp_pad_heads=pad)
+    if changes:
+        ref = dataclasses.replace(ref, **changes)
+        port = dataclasses.replace(port, **changes)
     return ref, port
+
+
+# (ghost-head pad, arch, config changes) of each `pair`; recurrentgemma's
+# SMOKE has window 8, so S = 24 prefills and decodes past the window
+PAIRS = {
+    "smoke": (0, "llama3.2-3b", {}),
+    "ghost_heads": (4, "llama3.2-3b", {}),
+    "recurrentgemma_smoke": (0, "recurrentgemma-9b", {}),
+    "recurrentgemma_head_dim_256": (0, "recurrentgemma-9b",
+                                    {"name": "recurrentgemma-hd256",
+                                     "head_dim": 256}),
+}
+
+
+def _attention_layers(cfg) -> int:
+    return sum(seg.count * sum(kind != "rg" for kind in seg.blocks)
+               for seg in cfg.segments)
 
 
 def _tree_numpy(params):
@@ -53,9 +76,10 @@ def _tree_numpy(params):
                    else np.asarray(a)), params)
 
 
-@pytest.fixture(scope="module", params=[0, 4], ids=["smoke", "ghost_heads"])
+@pytest.fixture(scope="module", params=list(PAIRS))
 def pair(request):
-    ref_cfg, cfg = _configs(request.param)
+    pad, arch, changes = PAIRS[request.param]
+    ref_cfg, cfg = _configs(pad, arch, **changes)
     params = ref_init_params(ref_cfg, jax.random.PRNGKey(0))
     model = params_from_jax(cfg, _tree_numpy(params), "cpu")
     tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, S))
@@ -78,9 +102,14 @@ def test_train_logits_match(pair):
     assert cache is None and float(aux) == 0.0
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     assert _rel(want, got) < TOL
-    # head dim 16 is routed off the flash kernel: blockwise, one per layer
-    assert (fak.launches, fak.plain_calls) == (0, 0)
-    assert layers.blockwise_calls == 2
+    # head dim 16 is routed off the flash kernel: blockwise, one per
+    # attention layer; 256 goes to the kernel's wrapper (plain on the CPU)
+    n = _attention_layers(ref_cfg)
+    assert fak.launches == 0
+    if ref_cfg.resolved_head_dim % 128 == 0:
+        assert (fak.plain_calls, layers.blockwise_calls) == (n, 0)
+    else:
+        assert (fak.plain_calls, layers.blockwise_calls) == (0, n)
 
 
 def test_prefill_and_decode_logits_match(pair):
@@ -93,10 +122,18 @@ def test_prefill_and_decode_logits_match(pair):
     t = torch.from_numpy(tokens)
     got_p, cache, _ = forward(model, t[:, :S - 1], mode="prefill")
     assert _rel(want_p, got_p) < TOL
-    k = cache[0][0]["k"]
-    assert k.shape == rc[0][0]["k"].shape[:3] + (S - 1,) + k.shape[4:]
+    if not ref_cfg.window:
+        k = cache[0][0]["k"]
+        assert k.shape == rc[0][0]["k"].shape[:3] + (S - 1,) + k.shape[4:]
     cache = pad_cache_to(cache, cfg, S + 4)
-    assert cache[0][0]["k"].shape == rc[0][0]["k"].shape
+    # the padded cache has the reference's leaves: names, shapes, dtypes
+    # (a window cache stays window-sized, a recurrent state fixed-size)
+    want_leaves = jax.tree_util.tree_leaves_with_path(rc)
+    got_leaves = jax.tree_util.tree_leaves_with_path(cache)
+    assert [(jax.tree_util.keystr(p), tuple(a.shape), str(a.dtype))
+            for p, a in want_leaves] == [
+        (jax.tree_util.keystr(p), tuple(b.shape),
+         str(b.dtype).replace("torch.", "")) for p, b in got_leaves]
     got_d, cache2, _ = forward(model, t[:, S - 1:], mode="decode", cache=cache,
                                pos=S - 1)
     assert cache2 is cache                        # written in place
@@ -107,10 +144,14 @@ def test_prefill_and_decode_logits_match(pair):
 
 
 def test_decode_from_a_zeroed_cache_matches_prefill(pair):
+    """Token by token from a zeroed cache, then one prefill: the last
+    logits agree. With a window (recurrentgemma: 8) the decode runs all
+    S = 24 tokens, three times past the window."""
     _, cfg, _, model, tokens = pair
-    t = torch.from_numpy(tokens[:, :6])
-    cache = init_cache(cfg, 2, 8, device="cpu")
-    for i in range(6):
+    n, cap = (S, S) if cfg.window else (6, 8)
+    t = torch.from_numpy(tokens[:, :n])
+    cache = init_cache(cfg, 2, cap, device="cpu")
+    for i in range(n):
         logits, cache, _ = forward(model, t[:, i:i + 1], mode="decode",
                                    cache=cache, pos=i)
     want, _, _ = forward(model, t, mode="prefill")
@@ -123,8 +164,13 @@ def test_tree_round_trip_is_byte_exact(pair):
     got = jax.tree_util.tree_leaves_with_path(params_to_tree(model))
     assert [p for p, _ in want] == [p for p, _ in got]
     for (path, a), (_, b) in zip(want, got):
-        assert b.dtype == torch.bfloat16, path
-        assert np.array_equal(a, b.view(torch.int16).numpy().view(np.uint16))
+        if a.dtype == np.uint16:                        # bf16 bit views
+            assert b.dtype == torch.bfloat16, path
+            b = b.view(torch.int16).numpy().view(np.uint16)
+        else:                                           # rg's fp32 `lam`
+            assert b.dtype == torch.float32 and a.dtype == np.float32, path
+            b = b.numpy()
+        assert np.array_equal(a, b), path
 
 
 def test_ghost_heads_stay_zero():
@@ -144,34 +190,54 @@ def test_ghost_heads_stay_zero():
     assert [tuple(a.shape) for a in ref] == [tuple(b.shape) for b in got]
 
 
-def test_full_width_leaf_shapes_match_reference():
-    """llama3.2-3b at full width, without allocating it: the port builds
-    on the meta device, the reference through eval_shape."""
-    cfg = get_config("llama3.2-3b")
+# arch, physical parameters (every leaf), bytes, (q heads, kv heads)
+# padded, and `param_count()`, which counts neither ghost heads (llama:
+# 24 -> 32 q heads, 8 kv heads padded over them) nor the final norm
+FULL_WIDTH = [
+    ("llama3.2-3b", 3_388_910_592, 6_777_821_184, (32, 8), 3_212_746_752),
+    # the 26 rg blocks' `lam` leaves (5,504 each) are fp32
+    ("recurrentgemma-9b", 10_549_127_680, 21_098_541_568, (16, 1),
+     10_549_123_584),
+]
+
+
+@pytest.mark.parametrize("arch,physical,nbytes,heads,counted", FULL_WIDTH)
+def test_full_width_leaf_shapes_match_reference(arch, physical, nbytes,
+                                                heads, counted):
+    """A full-width model, without allocating it: the port builds on the
+    meta device, the reference through eval_shape."""
+    cfg = get_config(arch)
     ref = jax.tree_util.tree_leaves_with_path(
-        ref_abstract_params(ref_get_config("llama3.2-3b")))
+        ref_abstract_params(ref_get_config(arch)))
     got = jax.tree_util.tree_leaves_with_path(abstract_params(cfg))
     assert [(jax.tree_util.keystr(p), tuple(a.shape), str(a.dtype))
             for p, a in ref] == [
-        (jax.tree_util.keystr(p), tuple(b.shape), "bfloat16") for p, b in got]
-    assert all(b.dtype == torch.bfloat16 for _, b in got)
-    physical = sum(b.numel() for _, b in got)
-    assert physical == 3_388_910_592            # 6.78 GB in bf16
-    assert (cfg.num_heads_padded, cfg.num_kv_heads_padded) == (32, 8)
+        (jax.tree_util.keystr(p), tuple(b.shape),
+         str(b.dtype).replace("torch.", "")) for p, b in got]
+    assert all(b.dtype == torch.bfloat16 or "lam" in jax.tree_util.keystr(p)
+               for p, b in got)
+    assert sum(b.numel() for _, b in got) == physical
+    assert sum(b.numel() * b.element_size() for _, b in got) == nbytes
+    assert (cfg.num_heads_padded, cfg.num_kv_heads_padded) == heads
+    assert cfg.param_count() == ref_get_config(arch).param_count() == counted
+    if heads[0] == cfg.num_heads:                   # no ghost heads
+        assert physical == counted + cfg.d_model
 
 
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "recurrentgemma-9b"])
 @pytest.mark.parametrize("smoke", [False, True])
-def test_configs_are_the_reference_configs(smoke):
-    want = ref_get_config("llama3.2-3b", smoke=smoke)
-    got = get_config("llama3.2-3b", smoke=smoke)
+def test_configs_are_the_reference_configs(smoke, arch):
+    want = ref_get_config(arch, smoke=smoke)
+    got = get_config(arch, smoke=smoke)
     assert dataclasses.asdict(want) == dataclasses.asdict(got)
     assert want.param_count() == got.param_count()
 
 
 def test_unported_archs_raise_naming_the_roadmap():
     assert len(all_archs()) == 10
+    assert set(PORTED) == {"llama3.2-3b", "recurrentgemma-9b"}
     for arch in all_archs():
-        if arch == "llama3.2-3b":
+        if arch in PORTED:
             continue
         with pytest.raises(NotImplementedError, match="ROADMAP A9"):
             get_config(arch)
@@ -192,6 +258,22 @@ def test_serve_run_on_the_cpu():
     # no flash kernel, as in the reference
     assert (fak.launches, fak.plain_calls) == (0, 0)
     assert layers.blockwise_calls == 2 * 2
+
+
+def test_serve_run_recurrentgemma_on_the_cpu():
+    """`--arch recurrentgemma-9b` serves its SMOKE config on the CPU:
+    prompts of 12 tokens over window 8 (a rolled window cache), 10 decode
+    steps, running past the window; the local attention layer attends
+    blockwise at head dim 16, once per prefill."""
+    fak.reset_counts()
+    layers.reset_blockwise_calls()
+    out = serve.run(["--arch", "recurrentgemma-9b", "--device", "cpu",
+                     "--requests", "3", "--batch", "2", "--prompt-len", "12",
+                     "--gen", "10"])
+    assert [t.shape for t in out["tokens"]] == [(2, 10), (1, 10)]
+    assert out["served_tokens"] == 3 * (12 + 10)
+    assert (fak.launches, fak.plain_calls) == (0, 0)
+    assert layers.blockwise_calls == 2 * 1
 
 
 def test_serve_default_arch_needs_mla():
