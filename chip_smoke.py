@@ -56,8 +56,24 @@ Drives the port's main path on one CUDA card and checks every byte:
      launches, no blockwise or plain call); prefill + decode checked
      against prefill; prefill, flash and decode times and the peak host
      memory printed;
-  5. a JSON line of per-kernel numbers, the card line, and the result
-     line `{"ok": true, "device": {...}}` last.
+ 10. the failure/repair simulator (`repro_torch.sim`) on the card, after
+     phase 9 has let go of its model and store: (a) the §5 Markov chain
+     event by event for UniLRC and ALRC 30-of-42, 400 trials, lifetimes
+     drawn on the card, the Markov answer within 3.29 standard errors;
+     (b) a correlated campaign in metadata mode, UniLRC 180-of-210 on
+     10 x 24 nodes with link-charged repair and cluster losses; (c) a
+     data-path trial on that deployment without cluster losses: 23
+     stripes of 1 MiB blocks (4 GiB of payload) under 500 h of node
+     churn, every repair a front-end rebuild launching the coding
+     kernels, launches == plan groups == the kernels' own counts, no
+     data lost and the payload read back byte for byte; (d) two data
+     blocks of local group 0 dropped in all 23 stripes and healed by a
+     data-path scheduler in one pattern decode and one XOR;
+  5. a JSON line of per-kernel numbers (five rows: gf, xor, flash d=128,
+     flash d=256, and the fp32 flash kernel, which no path runs; gf and
+     xor count their launches per path, the simulator's included), the
+     card line, and the result line `{"ok": true, "device": {...}}`
+     last.
 
 Any failed check exits non-zero before the result line. Without a CUDA
 device, or without the repo's `src/repro_torch` beside it, it exits 1.
@@ -72,6 +88,7 @@ import json
 import math
 import pathlib
 import re
+import resource
 import shutil
 import statistics
 import subprocess
@@ -638,8 +655,6 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
     attention layer of each prefill batch) and the logits; exits on the
     first failed check. Phase lines are named with `tag` in front. Returns
     the flash kernel's launches and plain calls on the serve run."""
-    import resource
-
     import torch
 
     from repro_torch.ckpt import BlockStore, CheckpointManager
@@ -745,7 +760,8 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
     torch.cuda.synchronize()
     out = serve(cfg, model, batch=B, requests=REQ, prompt_len=P, gen=G,
                 seed=seed, device=dev)
-    flash = {"launches": fak.launches, "plain_calls": fak.plain_calls,
+    flash = {"launches": fak.launches, "fp32_launches": fak.fp32_launches,
+             "plain_calls": fak.plain_calls,
              "blockwise_calls": layers.blockwise_calls}
     nbatches = math.ceil(REQ / B)
     phase(f"{tag}serve", requests=REQ, batch=B, prompt=P, gen=G,
@@ -759,6 +775,7 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
     check(flash["launches"] == nbatches * attn_layers,
           f"flash launches {flash['launches']} != "
           f"{nbatches} x {attn_layers}")
+    check(flash["fp32_launches"] == 0, "fp32 flash kernel on the serve path")
     check(flash["plain_calls"] == 0, "flash plain version on the serve path")
     check(flash["blockwise_calls"] == 0, "blockwise attention on the serve path")
     for toks in out["tokens"]:
@@ -854,6 +871,248 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
           peak_host_rss_GB=f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9:.3f}",
           peak_device_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
     return flash
+
+
+# phase 10's settings, from benchmarks/fig_sim_reliability.py: the chain
+# panel's stressed rates (repairs ~3x the failure rate, so absorption is
+# simulable at n = 42) and the campaign panels' milder rates
+SIM_CHAIN = dict(N=4, S_TB=1.0, epsilon=0.0017, delta=0.5, T_hours=300.0,
+                 B_Gbps=1.0, node_mttf_years=0.5)
+SIM_CAMPAIGN = dict(N=4, S_TB=1.0, epsilon=0.05, delta=0.5, T_hours=48.0,
+                    B_Gbps=1.0, node_mttf_years=0.5)
+# the chain check's bound, stated before any run: the card's random
+# stream is not JAX's, so the reference's pinned-seed CI check does not
+# carry over; 3.29 standard errors is the two-sided 0.1% normal quantile
+SIM_CHAIN_Z = 3.29
+
+
+def sim_path() -> dict:
+    """Phase 10: the failure/repair simulator on the card.
+
+    10a the §5 chain event by event against the Markov answer (UniLRC and
+    ALRC 30-of-42, 400 trials, lifetimes drawn on the device); 10b a
+    correlated campaign in metadata mode (UniLRC 180-of-210 on 10 x 24
+    nodes, link-charged repair, cluster losses every 1,500 h on average,
+    4 years); 10c a data-path trial: the same deployment without cluster
+    losses, 23 stripes of 1 MiB blocks written and repaired through
+    the front-end for 500 h, every repair launching the coding
+    kernels; 10d two data blocks of local group 0 dropped in every stripe
+    of 10c and healed by a data-path scheduler (one pattern decode, one
+    XOR). Checks every byte; exits on the first failed check. Returns the
+    launches per kernel made by the simulator's own modules: 10c's write
+    and trial, and 10d's scheduler (not the check's reads and the rebuild
+    of repairs still queued at the mission's end)."""
+    import torch
+
+    from repro_torch.core import codec as plans
+    from repro_torch.core import (MTTDLParams, default_placement,
+                                  effective_recovery_traffic,
+                                  locality_metrics, make_unilrc,
+                                  mttdl_years_stripe, paper_schemes,
+                                  tolerable_failures)
+    from repro_torch.kernels import gf_bitmatmul as gfk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import xor_reduce as xrk
+    from repro_torch.sim import (DssTrial, FailureModel, RepairScheduler,
+                                 SimConfig, Simulator,
+                                 exponential_from_mttf_years, run_campaign,
+                                 sample_lifetimes, simulate_stripe_mttdl)
+    from repro_torch.topo import Topology
+
+    device = "cuda"
+    sync = torch.cuda.synchronize
+    kernels = {"gf_bitmatmul": gfk, "xor_reduce": xrk}
+    sim_launches = dict.fromkeys(kernels, 0)
+
+    def count_sim() -> dict:
+        """Adds the launches since the counts' last reset to the
+        simulator's, checks that no plain version ran, and returns them."""
+        got = {name: k.launches for name, k in kernels.items()}
+        check(not any(k.plain_calls for k in kernels.values()),
+              "a plain version ran in the simulator")
+        for name, n in got.items():
+            sim_launches[name] += n
+        return got
+
+    # 10a the chain, event by event ----------------------------------------
+    chain = MTTDLParams(**SIM_CHAIN)
+    for name in ("UniLRC", "ALRC"):
+        code = paper_schemes("30-of-42")[name]
+        C = effective_recovery_traffic(
+            locality_metrics(code, default_placement(code)), chain.delta)
+        f = tolerable_failures(code)
+        markov = mttdl_years_stripe(code.n, f, C, chain)
+        t0 = time.perf_counter()
+        est = simulate_stripe_mttdl(code.n, f, C, chain, trials=400, seed=0,
+                                    device=device)
+        z = abs(markov - est.mean_years) / (est.std_years
+                                            / math.sqrt(est.trials))
+        phase("sim chain", code=code.name, trials=est.trials,
+              markov_years=f"{markov:.6f}",
+              sim_years=f"{est.mean_years:.6f}",
+              ci95_years=f"{est.ci95_years:.6f}",
+              within_ci=est.contains(markov), z=f"{z:.3f}",
+              bound=SIM_CHAIN_Z, seconds=f"{time.perf_counter() - t0:.3f}")
+        check(z <= SIM_CHAIN_Z, f"{code.name}: Markov {markov} is {z:.2f} "
+              f"standard errors from the simulated {est.mean_years}")
+
+    # 10b correlated campaign, metadata mode -------------------------------
+    params = MTTDLParams(**SIM_CAMPAIGN)
+    code = make_unilrc(2, 10)
+    topo = Topology(10, 24)
+    node = exponential_from_mttf_years(params.node_mttf_years)
+    cfg = SimConfig(code=code, params=params, topology=topo, n_stripes=2,
+                    trials=12, seed=1,
+                    mission_hours=4 * 8760.0, device=device,
+                    failure_model=FailureModel(
+                        node=node, cluster_loss_mean_hours=1500.0))
+    t0 = time.perf_counter()
+    report = run_campaign(cfg)
+    phase("sim campaign", seconds=f"{time.perf_counter() - t0:.3f}",
+          mission_hours=cfg.mission_hours, n_stripes=cfg.n_stripes,
+          row=json.dumps(report.row()))
+    check(report.trials == 12 and report.kernel_launches == 0,
+          f"campaign {report}")
+    check(report.repaired_blocks > 0 and 0 <= report.degraded_fraction <= 1
+          and 0 <= report.cross_traffic_fraction <= 1, f"campaign {report}")
+
+    # 10c data-path trial: real bytes through the coding kernels ------------
+    cfg = SimConfig(code=code, params=params, topology=topo, n_stripes=23,
+                    trials=1, seed=2505, mission_hours=500.0,
+                    data_path=True, block_size=MIB, device=device,
+                    failure_model=FailureModel(node=node))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(cfg.seed)
+    init = sample_lifetimes(node, gen, (1, topo.num_nodes), device=device)
+    gfk.reset_counts()
+    xrk.reset_counts()
+    t0 = time.perf_counter()
+    trial = DssTrial(cfg, 0, init[0])
+    sync()
+    codec, store, backend = trial.codec, trial.store, trial.codec.backend
+    phase("sim trial write", stripes=len(trial.metas),
+          GiB=f"{len(trial.payload) / GIB:.3f}",
+          seconds=f"{time.perf_counter() - t0:.3f}",
+          gf_launches=count_sim()["gf_bitmatmul"])
+    gfk.reset_counts()
+    xrk.reset_counts()
+    backend.reset_times()
+    # host seconds in the decode planner (Gaussian elimination for each
+    # new erasure pattern) and in the store's reads and writes, to
+    # attribute the trial's host time
+    split = {"plan_s": 0.0, "get_s": 0.0, "put_s": 0.0}
+
+    def timed(key, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            split[key] += time.perf_counter() - t0
+            return out
+        return call
+    plan_fn = plans.decode_plan
+    plans.decode_plan = timed("plan_s", plan_fn)
+    store.get_many = timed("get_s", store.get_many)
+    store.put = timed("put_s", store.put)
+    before = sum(ops.KERNEL_LAUNCHES.values())
+    t0 = time.perf_counter()
+    try:
+        result = trial.run()
+        sync()
+    finally:
+        plans.decode_plan = plan_fn
+        del store.get_many, store.put
+    wall = time.perf_counter() - t0
+    t = backend.take_times()
+    led = trial.scheduler.ledger
+    counted = sum(ops.KERNEL_LAUNCHES.values()) - before
+    run = count_sim()
+    device_ms = t["h2d_ms"] + t["kernel_ms"] + t["d2h_ms"]
+    phase("sim trial", mission_hours=cfg.mission_hours,
+          events=trial.sim.events_handled, lost=result.lost,
+          repaired_blocks=led.repaired_blocks, jobs=led.jobs,
+          plan_groups=led.plan_groups,
+          multi_erasure_blocks=led.multi_erasure_blocks,
+          max_concurrent_jobs=led.max_concurrent_jobs,
+          cross_traffic_fraction=f"{led.cross_traffic_fraction:.4f}",
+          data_GiB_read=f"{led.data_bytes_read / GIB:.3f}",
+          gf_launches=run["gf_bitmatmul"], xor_launches=run["xor_reduce"],
+          seconds=f"{wall:.3f}", device_share=f"{device_ms / 1e3 / wall:.4f}",
+          h2d_ms=f"{t['h2d_ms']:.1f}", kernel_ms=f"{t['kernel_ms']:.1f}",
+          d2h_ms=f"{t['d2h_ms']:.1f}", pin_s=f"{t['pin_s']:.3f}",
+          stage_s=f"{t['stage_s']:.3f}", land_s=f"{t['land_s']:.3f}",
+          **{key: f"{value:.3f}" for key, value in split.items()})
+    check(not result.lost, "the data-path trial lost data")
+    check(led.repaired_blocks > 0, "the data-path trial repaired nothing")
+    total = sum(run.values())
+    check(led.kernel_launches == led.plan_groups == counted == total,
+          f"launches: ledger {led.kernel_launches}, plan groups "
+          f"{led.plan_groups}, counted {counted}, kernels {total}")
+    check(run["xor_reduce"] > 0, "no XOR repair launched")
+    # the check's own launches (degraded reads, the queued repairs) are
+    # counted apart from the simulator's
+    gfk.reset_counts()
+    xrk.reset_counts()
+    t0 = time.perf_counter()
+    pending = sorted((sid, b) for sid, miss in trial.missing.items()
+                     for b in miss)
+    check(codec.read_all(trial.metas) == trial.payload,
+          "data-path trial payload differs")
+    if pending:                 # repairs still queued at the mission's end
+        codec.rebuild_blocks(pending)
+    check(all(store.available(sid, b) for sid in range(cfg.n_stripes)
+              for b in range(code.n)), "a block is still missing")
+    phase("sim trial check", identical=True, pending_rebuilt=len(pending),
+          seconds=f"{time.perf_counter() - t0:.3f}",
+          gf_launches=gfk.launches, xor_launches=xrk.launches)
+
+    # 10d a shared two-erasure pattern across all 23 stripes, healed by the
+    # scheduler: one pattern decode (gf), then one XOR for the rest ---------
+    b1, b2 = [b for b in code.groups[0] if code.block_type[b] == "d"][:2]
+    pairs = []
+    for sid in range(cfg.n_stripes):
+        store.drop_block(sid, b1)
+        store.drop_block(sid, b2)
+        pairs += [(sid, b1), (sid, b2)]
+    sim = Simulator()
+    healed = []
+
+    def missing(sid):
+        return frozenset(b for b in range(code.n)
+                         if not store.available(sid, b))
+
+    sched = RepairScheduler(sim, codec.placement, params,
+                            block_TB=params.S_TB / code.n,
+                            stripe_missing=missing, on_repaired=healed.extend,
+                            codec=codec)
+    gfk.reset_counts()
+    xrk.reset_counts()
+    backend.reset_times()
+    t0 = time.perf_counter()
+    sched.damaged(pairs)
+    sim.run()
+    sync()
+    wall = time.perf_counter() - t0
+    t = backend.take_times()
+    led = sched.ledger
+    run = count_sim()
+    phase("sim pattern", pairs=len(pairs), jobs=led.jobs,
+          launches=led.kernel_launches, plan_groups=led.plan_groups,
+          multi_erasure_blocks=led.multi_erasure_blocks,
+          gf_launches=run["gf_bitmatmul"], xor_launches=run["xor_reduce"],
+          seconds=f"{wall:.3f}",
+          device_share=f"{(t['h2d_ms'] + t['kernel_ms'] + t['d2h_ms']) / 1e3 / wall:.4f}",
+          kernel_ms=f"{t['kernel_ms']:.1f}")
+    check(sorted(healed) == sorted(pairs), "pattern repair left pairs")
+    check((led.kernel_launches, led.plan_groups, led.multi_erasure_blocks)
+          == (2, 2, cfg.n_stripes), f"pattern ledger {led}")
+    check((run["gf_bitmatmul"], run["xor_reduce"]) == (1, 1),
+          "pattern repair: not one gf and one xor launch")
+    check(codec.read_all(trial.metas) == trial.payload,
+          "payload differs after the pattern repair")
+    phase("sim path", kernel_launches=json.dumps(sim_launches))
+    check(all(v > 0 for v in sim_launches.values()),
+          "a kernel never launched on the simulator path")
+    return sim_launches
 
 
 def leaves(node):
@@ -1061,7 +1320,7 @@ def main() -> None:
     flash_case(1, 32, 8, 1024, 2048, 128, bf16, False)     # Sq != Skv
     flash_case(4, 32, 8, 1000, 1000, 128, bf16, True)      # ragged
     flash_case(2, 16, 4, 1024, 1024, 64, bf16, True)       # d = 64
-    flash_case(1, 8, 2, 1024, 1024, 128, fp32, True, reps=5)
+    flash_fp32 = flash_case(1, 8, 2, 1024, 1024, 128, fp32, True, reps=5)
     # head dim 256 (recurrentgemma's local attention, MQA): the serve
     # prefill shape, then the 64-key tile's and the 128-row q tile's
     # edges, a window narrower than a key tile, Sq != Skv, one token
@@ -1114,7 +1373,9 @@ def main() -> None:
     t0 = time.perf_counter()
     smoke = serve_cli.run(["--arch", "llama3.2-3b", "--requests", "1",
                            "--prompt-len", "8", "--gen", "2"])
-    smoke_counts = {"launches": fak.launches, "plain_calls": fak.plain_calls,
+    smoke_counts = {"launches": fak.launches,
+                    "fp32_launches": fak.fp32_launches,
+                    "plain_calls": fak.plain_calls,
                     "blockwise_calls": layers.blockwise_calls}
     phase("serve smoke arch", seconds=f"{time.perf_counter() - t0:.2f}",
           tokens=json.dumps([t.tolist() for t in smoke["tokens"]]),
@@ -1138,35 +1399,60 @@ def main() -> None:
     phase("rg phase", seconds=f"{time.perf_counter() - t0:.2f}",
           pinned_host_GB=json.dumps(pinned))
 
+    # 10. the failure/repair simulator: the chain, a correlated campaign,
+    # and data-path repair launching the coding kernels ----------------------
+    gc.collect()
+    torch.cuda.empty_cache()        # phase 9's cached device memory goes back
+    t0 = time.perf_counter()
+    sim = sim_path()
+    phase("sim phase", seconds=f"{time.perf_counter() - t0:.2f}",
+          peak_host_rss_GB=f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9:.3f}")
+
     # 5. results ----------------------------------------------------------------
+    fp32_launches = {"serve": flash["fp32_launches"],
+                     "serve_smoke": smoke_counts["fp32_launches"],
+                     "serve_recurrentgemma": flash_rg_path["fp32_launches"]}
     kernels = [
         dict(name="gf_bitmatmul", kernel="gf_matmul_sm90_kernel",
              route="cuda", source="src/repro_torch/csrc/gf_matmul_sm90.cu",
              replaces="src/repro/kernels/gf_bitmatmul.py:108",
              launches=launches["gf_bitmatmul"],
              launches_by_path={"stripe": launches["gf_bitmatmul"],
-                               "frontend": frontend["gf_bitmatmul"]},
+                               "frontend": frontend["gf_bitmatmul"],
+                               "sim": sim["gf_bitmatmul"]},
              library_ms=None, **gf_main),
         dict(name="xor_reduce", kernel="xor_fold_kernel", route="cuda",
              source="src/repro_torch/csrc/coding_kernels.cu",
              replaces="src/repro/kernels/xor_reduce.py:54",
              launches=launches["xor_reduce"],
              launches_by_path={"stripe": launches["xor_reduce"],
-                               "frontend": frontend["xor_reduce"]},
+                               "frontend": frontend["xor_reduce"],
+                               "sim": sim["xor_reduce"]},
              library_ms=None, **xor_main),
         dict(name="flash_attention", kernel="flash_fwd_sm90_kernel",
              route="cuda", source="src/repro_torch/csrc/flash_fwd_sm90.cu",
              replaces="src/repro/kernels/flash_attention.py:116",
-             launches=flash["launches"],
-             launches_by_path={"serve": flash["launches"]},
+             launches=flash["launches"] - flash["fp32_launches"],
+             launches_by_path={"serve": flash["launches"]
+                               - flash["fp32_launches"]},
              **flash_main),
         dict(name="flash_attention_d256", kernel="flash_fwd_sm90_kernel<256>",
              route="cuda", source="src/repro_torch/csrc/flash_fwd_sm90.cu",
              replaces="src/repro/kernels/flash_attention.py:116",
-             launches=flash_rg_path["launches"],
+             launches=flash_rg_path["launches"]
+             - flash_rg_path["fp32_launches"],
              launches_by_path={"serve_recurrentgemma": flash_rg_path[
-                 "launches"]},
+                 "launches"] - flash_rg_path["fp32_launches"]},
              **flash_rg),
+        # fp32 attention: every model config is bf16, so the serve phases
+        # (6, 8, 9), which check it, count no fp32 launch; phase 3 checks
+        # and times the kernel
+        dict(name="flash_attention_fp32", kernel="flash_fwd_kernel",
+             route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:116",
+             launches=fp32_launches["serve"] + fp32_launches["serve_smoke"]
+             + fp32_launches["serve_recurrentgemma"],
+             launches_by_path=fp32_launches, **flash_fp32),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line)

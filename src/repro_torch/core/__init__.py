@@ -2,10 +2,11 @@
 plans, placement, the locality metrics and the MTTDL model — host-side
 numpy copies of `repro.core`."""
 from .codec import (DecodePlan, RecoveryPlan, all_recovery_plans,
-                    clear_plan_caches, decode_plan, decode_plan_cached,
-                    plans_for, single_recovery_plan)
+                    cached_decode_plans, clear_plan_caches, decode_plan,
+                    decode_plan_cached, plans_for, single_recovery_plan,
+                    verify_erasure_tolerance)
 from .codes import (ALL_SCHEMES, Code, cauchy_matrix, code_from_state,
-                    make_alrc, make_olrc, make_ulrc, make_unilrc,
+                    make_alrc, make_olrc, make_rs, make_ulrc, make_unilrc,
                     paper_schemes)
 from .metrics import (LocalityMetrics, effective_block_traffic,
                       locality_metrics, per_block_repair_traffic,
@@ -21,9 +22,11 @@ from .placement import (Placement, default_placement, place_ecwide,
 
 __all__ = [
     "ALL_SCHEMES", "Code", "cauchy_matrix", "code_from_state", "make_alrc",
-    "make_olrc", "make_ulrc", "make_unilrc", "paper_schemes",
-    "DecodePlan", "RecoveryPlan", "all_recovery_plans", "clear_plan_caches",
-    "decode_plan", "decode_plan_cached", "plans_for", "single_recovery_plan",
+    "make_olrc", "make_rs", "make_ulrc", "make_unilrc", "paper_schemes",
+    "DecodePlan", "RecoveryPlan", "all_recovery_plans",
+    "cached_decode_plans", "clear_plan_caches", "decode_plan",
+    "decode_plan_cached", "plans_for", "single_recovery_plan",
+    "verify_erasure_tolerance",
     "LocalityMetrics", "effective_block_traffic", "locality_metrics",
     "per_block_repair_traffic", "recovery_locality", "MTTDLParams",
     "code_mttdl_years", "effective_recovery_traffic", "failure_rate_per_hour",

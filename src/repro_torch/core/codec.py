@@ -311,7 +311,38 @@ def decode_plan_cached(code: Code,
     return plan
 
 
+def cached_decode_plans(code: Code) -> tuple[DecodePlan, ...]:
+    """Snapshot of every DecodePlan currently memoized for `code`.
+
+    The symbolic verifier walks this to certify that what the engines
+    will actually *execute* (they decode through `decode_plan_cached`)
+    inverts its erasure pattern — not just freshly-built plans."""
+    cache = _PLAN_CACHES.get(_code_key(code))
+    if cache is None:
+        return ()
+    return tuple(cache.decodes.values())
+
+
 def clear_plan_caches() -> None:
     """Drop every memoized plan (tests / long-lived processes)."""
     _PLAN_CACHES.clear()
+
+
+def verify_erasure_tolerance(code: Code, num_erasures: int,
+                             trials: int = 50, seed: int = 0) -> bool:
+    """Randomized check: `num_erasures` random erasures always decodable
+    and decode reproduces the original blocks."""
+    rng = np.random.default_rng(seed)
+    B = 64
+    data = rng.integers(0, 256, size=(code.k, B), dtype=np.uint8)
+    codeword = code.encode(data)
+    for _ in range(trials):
+        erased = rng.choice(code.n, size=num_erasures, replace=False)
+        plan = decode_plan(code, tuple(int(e) for e in erased))
+        blocks = {i: codeword[i] for i in range(code.n) if i not in set(erased.tolist())}
+        rec = plan.apply(blocks)
+        for e in erased:
+            if not np.array_equal(rec[int(e)], codeword[int(e)]):
+                return False
+    return True
 

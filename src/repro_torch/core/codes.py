@@ -319,6 +319,23 @@ def make_ulrc(k: int, l: int, g: int) -> Code:
 # Paper parameter sets (Table 2)
 # ---------------------------------------------------------------------------
 
+def make_rs(n: int, k: int) -> Code:
+    """Plain MDS (Cauchy Reed-Solomon) — no locality: every recovery reads k."""
+    g = n - k
+    Gmat = cauchy_matrix(g, k)
+    block_type = ['d'] * k + ['g'] * g
+    checks = []
+    for t in range(g):
+        h = np.zeros(n, dtype=np.uint8)
+        h[:k] = Gmat[t]
+        h[k + t] = 1
+        checks.append(h)
+    return Code(
+        name=f"RS({n},{k})", n=n, k=k, A=Gmat,
+        groups=(tuple(range(n)),), checks=np.array(checks, dtype=np.uint8),
+        block_type=tuple(block_type), meta=dict(family="rs", d=n - k + 1))
+
+
 def paper_schemes(scheme: str) -> dict[str, Code]:
     """The paper's three comparison points: 30-of-42, 112-of-136, 180-of-210.
 

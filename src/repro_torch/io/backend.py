@@ -39,6 +39,7 @@ import torch
 from repro_torch.core.codec import DecodePlan, RecoveryPlan
 from repro_torch.core.codes import Code
 from repro_torch.core.gf import gf_matmul
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
 
@@ -122,15 +123,7 @@ class TorchBackend(Backend):
     staging_chunk = 32 << 20
 
     def __init__(self, device: str | torch.device = "cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "TorchBackend: no CUDA device is present; pass "
-                    "device='cpu' to run the plain versions on the host")
-        elif self.device.type != "cpu":
-            raise ValueError(f"TorchBackend runs on cuda or cpu, "
-                             f"got {self.device}")
+        self.device = resolve_device(device)
         self._cuda = self.device.type == "cuda"
         # per thread: the staging chunks (`chunks`), the encode double
         # buffer (`ring`), what each of its two slots still holds (`busy`)

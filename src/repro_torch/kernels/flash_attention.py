@@ -17,7 +17,8 @@ Both take any Sq, Skv >= 1 (the Pallas kernel needs them to divide its
 blocks), so the port's CUDA path has no branch to a plain version.
 
 `flash_attention_fwd` is the wrapper: a CUDA tensor launches one of the
-kernels (and counts it in `launches`), a CPU tensor takes
+kernels (and counts it in `launches`, an fp32 one also in
+`fp32_launches`), a CPU tensor takes
 `flash_attention_fwd_plain` (counted in `plain_calls`). There is no
 fallback from one to the other. `block_q` / `block_k` shape only the plain
 version's block loop; the kernels' tiles are fixed by their design.
@@ -42,15 +43,16 @@ FP32_HEAD_DIMS = ((64, 64), (128, 128))
 _ENTRY = {torch.float32: "repro_flash_fwd_f32",
           torch.bfloat16: "repro_flash_fwd_bf16"}
 
-launches = 0        # CUDA kernel launches
+launches = 0        # CUDA kernel launches, both kernels
+fp32_launches = 0   # of those, launches of the fp32 `flash_fwd_kernel`
 plain_calls = 0     # plain-PyTorch evaluations (CPU tensors)
 _COUNT_LOCK = threading.Lock()
 
 
 def reset_counts() -> None:
-    global launches, plain_calls
+    global launches, fp32_launches, plain_calls
     with _COUNT_LOCK:
-        launches = plain_calls = 0
+        launches = fp32_launches = plain_calls = 0
 
 
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -167,7 +169,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """q (B, Hq, Sq, dk), k (B, Hkv, Skv, dk), v (B, Hkv, Skv, dv) ->
     (out (B, Hq, Sq, dv) in q's dtype, lse (B, Hq, Sq) fp32), one launch."""
-    global launches, plain_calls
+    global launches, fp32_launches, plain_calls
     _check(q, k, v, window)
     if q.device.type == "cpu":
         with _COUNT_LOCK:
@@ -211,4 +213,6 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(err, _ENTRY[q.dtype])
     with _COUNT_LOCK:
         launches += 1
+        if q.dtype == torch.float32:
+            fp32_launches += 1
     return out, lse

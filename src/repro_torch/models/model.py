@@ -21,23 +21,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.device import resolve_device
+
 from . import layers as L
 from .config import ModelConfig, _rg_width
 
 _PORTED_KINDS = ("attn", "local_attn", "rg")
-
-
-def resolve_device(device: str | torch.device) -> torch.device:
-    """The device an entry point runs on. CUDA is the default everywhere;
-    asking for it without a card raises rather than falling back to the
-    CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is present; pass device='cpu' to "
-                           "run the plain versions on the host")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"the port runs on cuda or cpu, got {device}")
-    return device
 
 
 def _check_kinds(cfg: ModelConfig) -> None:

@@ -208,7 +208,22 @@ def test_flash_counts_launches_only_on_the_card(card):
     q, k, v = (t.to(card) for t in _qkv(0, 1, 2, 1, 64, 64, 64,
                                         torch.bfloat16))
     fak.flash_attention_fwd(q, k, v)
-    assert (fak.launches, fak.plain_calls) == (1, 0)
+    assert (fak.launches, fak.fp32_launches, fak.plain_calls) == (1, 0, 0)
+
+
+def test_fp32_flash_counts_its_own_launches(card):
+    """An fp32 call launches the scalar `flash_fwd_kernel`: it counts in
+    `launches` and in `fp32_launches`, and its result is the plain
+    version's."""
+    q, k, v = (t.to(card) for t in _qkv(3, 1, 4, 2, 200, 200, 128,
+                                        torch.float32))
+    fak.reset_counts()
+    out, lse = fak.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert (fak.launches, fak.fp32_launches, fak.plain_calls) == (1, 1, 0)
+    want, want_lse = fak.flash_attention_fwd_plain(q, k, v)
+    assert (out - want).abs().max().item() <= 2e-5
+    assert (lse - want_lse).abs().max().item() <= 1e-4
 
 
 def test_bf16_flash_is_one_launch_of_the_hopper_kernel(card):
@@ -348,3 +363,59 @@ def test_serve_smoke_arch_on_the_card(card):
     assert [tuple(t.shape) for t in out["tokens"]] == [(1, 2)]
     assert (fak.launches, fak.plain_calls) == (0, 0)
     assert layers.blockwise_calls >= 1
+
+
+def test_lifetime_sampler_on_the_card(card):
+    """The simulator's initial lifetimes drawn on the card: equal per
+    generator seed, float64 on the host, and the sample mean within 3
+    standard errors of the hazard's mean."""
+    from repro_torch.sim import Weibull, exponential_from_mttf_years
+    from repro_torch.sim import sample_lifetimes
+
+    def draw(hazard, seed, shape):
+        gen = torch.Generator(device=card)
+        gen.manual_seed(seed)
+        return sample_lifetimes(hazard, gen, shape, device=card)
+
+    for hazard in (exponential_from_mttf_years(0.5),
+                   Weibull(shape=0.7, scale=4000.0)):
+        a, b = draw(hazard, 7, (400, 240)), draw(hazard, 7, (400, 240))
+        assert a.shape == (400, 240) and a.dtype == np.float64
+        assert np.array_equal(a, b)
+        assert not np.array_equal(a, draw(hazard, 8, (400, 240)))
+        x = draw(hazard, 1, (200_000,))
+        se = x.std(ddof=1) / np.sqrt(x.size)
+        assert abs(x.mean() - hazard.mean_hours) < 3 * se
+
+
+def test_data_path_trial_on_the_card(card):
+    """A data-path `DssTrial` on the card: churn with real repairs through
+    the coding kernels, every launch one plan group, no plain version, and
+    the payload read back byte for byte."""
+    from repro_torch.core import MTTDLParams
+    from repro_torch.kernels import ops
+    from repro_torch.sim import DssTrial, SimConfig, sample_lifetimes
+
+    params = MTTDLParams(N=4, S_TB=1.0, epsilon=0.5, delta=0.5,
+                         T_hours=48.0, B_Gbps=1.0, node_mttf_years=0.5)
+    cfg = SimConfig(code=make_unilrc(1, 4), params=params, n_stripes=6,
+                    trials=1, seed=3, mission_hours=2000.0, data_path=True,
+                    block_size=4096, device="cuda")
+    nodes = cfg.resolved_placement().num_clusters * cfg.resolved_npc()
+    gen = torch.Generator(device=card)
+    gen.manual_seed(cfg.seed)
+    init = sample_lifetimes(cfg.resolved_failure_model().node, gen,
+                            (1, nodes), device=card)
+    gfk.reset_counts()
+    xrk.reset_counts()
+    trial = DssTrial(cfg, 0, init[0])
+    assert trial.codec.backend.device.type == "cuda"
+    before = sum(ops.KERNEL_LAUNCHES.values())
+    res = trial.run()
+    ledger = trial.scheduler.ledger
+    assert not res.lost and res.repaired_blocks > 0
+    assert ledger.kernel_launches == ledger.plan_groups > 0
+    assert sum(ops.KERNEL_LAUNCHES.values()) - before == ledger.kernel_launches
+    assert xrk.launches > 0
+    assert gfk.plain_calls == xrk.plain_calls == 0
+    assert trial.codec.read_all(trial.metas) == trial.payload

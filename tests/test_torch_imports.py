@@ -29,6 +29,10 @@ SLICE_MODULES = [
     "repro_torch.io.engine", "repro_torch.io.backend",
     "repro_torch.io.frontend", "repro_torch.io.workload",
     "repro_torch.configs.recurrentgemma_9b", "repro_torch.models.layers",
+    "repro_torch.sim", "repro_torch.sim.events", "repro_torch.sim.failures",
+    "repro_torch.sim.repair", "repro_torch.sim.montecarlo",
+    "repro_torch.analysis.certificate", "repro_torch.analysis.model",
+    "repro_torch.analysis.verify", "repro_torch.analysis.schedcheck",
 ]
 
 _PROBE = r"""
