@@ -11,12 +11,16 @@ Drives the port's main path on one CUDA card and checks every byte:
      the main path's shapes and its edges (byte equality for the coding
      kernels; 2e-2 in bf16 and 2e-5 / 1e-4 in fp32 for attention, at head
      dims 64, 128 and 256: recurrentgemma's windowed MQA prefill and the
-     64-key tile's edges), with its
-     median time over CUDA events, the plain version's time, the bound and
-     bound share and, for attention, PyTorch's
+     64-key tile's edges; fp32, on the tensor cores as 3xTF32, at the
+     llama and recurrentgemma prefill shapes, d = 64 and a small GQA
+     shape), with its median time over CUDA events, the plain version's
+     time, the bound and bound share (fp32: three TF32 products per
+     product at the TF32 rate) and, for attention, PyTorch's
      `scaled_dot_product_attention` as a yardstick; ptxas must report 0
-     spill bytes for every instantiation of the two sm90 kernels (three
-     of the flash kernel, five of the coding kernel);
+     spill bytes for every instantiation of the three sm90 kernels (three
+     of each flash kernel, five of the coding kernel), the fp32 flash
+     kernel's SASS must hold TF32 HMMAs at each head dim, and one fp32
+     call of the model layer's `flash_attention` must launch it once;
   4. stripe path: UniLRC 180-of-210 (alpha=2, z=10) on 10 clusters x 24
      nodes, 1 MiB blocks, `TorchBackend("cuda")`: a 4 GiB streamed write
      in windows of 8 stripes, a full read, one node lost (degraded read,
@@ -70,10 +74,10 @@ Drives the port's main path on one CUDA card and checks every byte:
      blocks of local group 0 dropped in all 23 stripes and healed by a
      data-path scheduler in one pattern decode and one XOR;
   5. a JSON line of per-kernel numbers (five rows: gf, xor, flash d=128,
-     flash d=256, and the fp32 flash kernel, which no path runs; gf and
-     xor count their launches per path, the simulator's included), the
-     card line, and the result line `{"ok": true, "device": {...}}`
-     last.
+     flash d=256, and the fp32 flash kernel at d = 64, 128 and 256, which
+     no serve path runs; gf and xor count their launches per path, the
+     simulator's included), the card line, and the result line
+     `{"ok": true, "device": {...}}` last.
 
 Any failed check exits non-zero before the result line. Without a CUDA
 device, or without the repo's `src/repro_torch` beside it, it exits 1.
@@ -99,7 +103,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8 tensor-core rate
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core rate
-FP32_OPS_PER_S = 67e12             # H100 SXM fp32 rate outside tensor cores
+TF32_OPS_PER_S = 495e12            # H100 SXM dense TF32 tensor-core rate
 GIB = 1 << 30
 MIB = 1 << 20
 
@@ -164,6 +168,36 @@ def ptxas_spills(log: str, kernel: str) -> dict[str, int]:
         if found:
             name = None
     return spills
+
+
+def sass_opcodes(library: pathlib.Path, kernel: str,
+                 nvcc: str) -> dict[str, dict[str, int]]:
+    """Opcode counts in the SASS of each function of `library` whose
+    mangled name contains `kernel` (`cuobjdump -sass`, found beside
+    nvcc)."""
+    tool = pathlib.Path(nvcc).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(library)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts: dict[str, dict[str, int]] = {}
+    ops = None
+    for line in text.splitlines():
+        func = re.search(r"Function : (\S+)", line)
+        if func:
+            ops = counts.setdefault(func.group(1), {}) \
+                if kernel in func.group(1) else None
+            continue
+        inst = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)", line)
+        if inst and ops is not None:
+            ops[inst.group(1)] = ops.get(inst.group(1), 0) + 1
+    return counts
+
+
+def tf32_hmma(ops: dict[str, int]) -> int:
+    """Tensor-core MMA instructions with a TF32 type among `ops`."""
+    return sum(n for op, n in ops.items()
+               if op.startswith("HMMA") and "TF32" in op)
 
 
 def main_path(backend, BS: int, payload, rng):
@@ -1162,6 +1196,7 @@ def main() -> None:
                                    "Function properties")):
             print("  ptxas:", line.strip())
     for kernel, want in (("flash_fwd_sm90_kernel", 3),   # d = 64, 128, 256
+                         ("flash_fwd_f32_sm90_kernel", 3),
                          ("gf_matmul_sm90_kernel", 5)):  # N widths
         spills = ptxas_spills(_build.build_log, kernel)
         phase(f"ptxas {kernel}", functions=len(spills),
@@ -1169,6 +1204,16 @@ def main() -> None:
         check(len(spills) == want, f"ptxas reported {len(spills)} "
               f"instantiations of {kernel}, want {want}")
         check(not any(spills.values()), f"{kernel} spills {spills}")
+    # the fp32 kernel multiplies on the tensor cores: TF32 HMMAs in the
+    # SASS of each head dim's instantiation
+    sass = sass_opcodes(_build.library_path(), "flash_fwd_f32_sm90_kernel",
+                        _build._nvcc())
+    hmma = {int(re.search(r"ILi(\d+)E", name).group(1)): tf32_hmma(ops)
+            for name, ops in sass.items()}
+    phase("sass flash_fwd_f32_sm90_kernel",
+          tf32_hmma=json.dumps(dict(sorted(hmma.items()))))
+    check(sorted(hmma) == [64, 128, 256] and all(hmma.values()),
+          f"TF32 HMMA counts of the fp32 flash kernel: {hmma}")
 
     from repro_torch.core import decode_plan_cached, make_unilrc
     from repro_torch.core.gf import gf_bit_columns
@@ -1278,9 +1323,11 @@ def main() -> None:
         lms = time_ms(library, reps)
         ops = fak.bound_flops(B, Hq, Sq, Skv, d, d, causal=causal,
                               window=window)
+        # fp32 at fp32 accuracy on the tensor cores: three TF32 products
+        # for each product of the function (hi*hi + hi*lo + lo*hi)
         b, by = bound_ms(
             fak.bound_bytes(B, Hq, Hkv, Sq, Skv, d, d, q.element_size()),
-            ops, BF16_OPS_PER_S if bf16 else FP32_OPS_PER_S)
+            *((ops, BF16_OPS_PER_S) if bf16 else (3 * ops, TF32_OPS_PER_S)))
         phase("kernel flash_attention", B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Skv=Skv,
               d=d, dtype=str(dtype).replace("torch.", ""), causal=causal,
               window=window, max_abs_err=f"{err:.3e}",
@@ -1290,7 +1337,8 @@ def main() -> None:
               bound_share=f"{b / ms:.4f}", vs_library=f"{ms / lms:.3f}",
               TFLOP_s=f"{ops / (ms / 1e3) / 1e12:.1f}")
         return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
-                    bound_by=by, bound_share=b / ms, library_ms=lms)
+                    bound_by=by, bound_share=b / ms, library_ms=lms,
+                    lse_max_abs_err=lse_err)
 
     rng = np.random.default_rng(2505)
     # a broken mbarrier ring would hang the card (the gf and flash kernels
@@ -1320,7 +1368,32 @@ def main() -> None:
     flash_case(1, 32, 8, 1024, 2048, 128, bf16, False)     # Sq != Skv
     flash_case(4, 32, 8, 1000, 1000, 128, bf16, True)      # ragged
     flash_case(2, 16, 4, 1024, 1024, 64, bf16, True)       # d = 64
-    flash_fp32 = flash_case(1, 8, 2, 1024, 1024, 128, fp32, True, reps=5)
+    # fp32 (3xTF32 on the tensor cores) at d = 128, 64 and 256: a small
+    # GQA shape, d = 64, then the llama and recurrentgemma prefill shapes
+    flash_fp32 = {
+        "B=1 Hq=8 Hkv=2 S=1024 d=128": flash_case(
+            1, 8, 2, 1024, 1024, 128, fp32, True, reps=10),
+        "B=2 Hq=16 Hkv=4 S=1024 d=64": flash_case(
+            2, 16, 4, 1024, 1024, 64, fp32, True, reps=10),
+        "B=4 Hq=32 Hkv=8 S=2048 d=128": flash_case(
+            4, 32, 8, 2048, 2048, 128, fp32, True, reps=10),
+        "B=2 Hq=16 Hkv=1 S=3968 d=256 window=2048": flash_case(
+            2, 16, 1, 3968, 3968, 256, fp32, True, window=2048, reps=10)}
+    # the model layer's route with fp32 tensors: one fp32 kernel launch
+    from repro_torch.models import layers
+    q, k, v = (torch.randn(sh, generator=gen, device=dev) for sh in
+               ((4, 32, 2048, 128), (4, 8, 2048, 128), (4, 8, 2048, 128)))
+    before = (fak.launches, fak.fp32_launches, fak.plain_calls)
+    out = layers.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    after = (fak.launches, fak.fp32_launches, fak.plain_calls)
+    phase("layer flash_attention fp32", shape=tuple(out.shape),
+          counts_before=before, counts_after=after)
+    check(after == (before[0] + 1, before[1] + 1, before[2]),
+          "layers.flash_attention in fp32: not one fp32 kernel launch")
+    check(out.dtype == fp32 and tuple(out.shape) == (4, 32, 2048, 128)
+          and bool(torch.isfinite(out).all()), "fp32 layer output")
+    del q, k, v, out
     # head dim 256 (recurrentgemma's local attention, MQA): the serve
     # prefill shape, then the 64-key tile's and the 128-row q tile's
     # edges, a window narrower than a key tile, Sq != Skv, one token
@@ -1444,15 +1517,21 @@ def main() -> None:
              launches_by_path={"serve_recurrentgemma": flash_rg_path[
                  "launches"] - flash_rg_path["fp32_launches"]},
              **flash_rg),
-        # fp32 attention: every model config is bf16, so the serve phases
-        # (6, 8, 9), which check it, count no fp32 launch; phase 3 checks
-        # and times the kernel
-        dict(name="flash_attention_fp32", kernel="flash_fwd_kernel",
-             route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        # fp32 attention at d = 64, 128 and 256: every model config is
+        # bf16, so the serve phases (6, 8, 9), which check it, count no
+        # fp32 launch; phase 3 checks and times the kernel. The row's
+        # numbers are the first shape's; `shapes` has all four, and
+        # max_abs_err is the largest of them
+        dict(name="flash_attention_fp32", kernel="flash_fwd_f32_sm90_kernel",
+             route="cuda", source="src/repro_torch/csrc/flash_fwd_f32_sm90.cu",
              replaces="src/repro/kernels/flash_attention.py:116",
              launches=fp32_launches["serve"] + fp32_launches["serve_smoke"]
              + fp32_launches["serve_recurrentgemma"],
-             launches_by_path=fp32_launches, **flash_fp32),
+             launches_by_path=fp32_launches,
+             **{**next(iter(flash_fp32.values())),
+                "max_abs_err": max(r["max_abs_err"]
+                                   for r in flash_fp32.values())},
+             shapes=flash_fp32),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line)

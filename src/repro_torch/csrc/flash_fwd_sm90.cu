@@ -2,10 +2,10 @@
 //
 // flash_fwd_sm90_kernel — replaces the Pallas TPU kernel
 //   `flash_attention_fwd` (src/repro/kernels/flash_attention.py, body
-//   `_flash_fwd_kernel`) for bf16 inputs; fp32 inputs take the scalar
-//   `flash_fwd_kernel` of flash_attention.cu. For q (B, Hq, Sq, d),
-//   k (B, Hkv, Skv, d), v (B, Hkv, Skv, d), d in {64, 128, 256}, q head h
-//   reading kv head h / (Hq / Hkv):
+//   `_flash_fwd_kernel`) for bf16 inputs; fp32 inputs take
+//   `flash_fwd_f32_sm90_kernel` (flash_fwd_f32_sm90.cu). For
+//   q (B, Hq, Sq, d), k (B, Hkv, Skv, d), v (B, Hkv, Skv, d),
+//   d in {64, 128, 256}, q head h reading kv head h / (Hq / Hkv):
 //     out = softmax(mask(q k^T * d^-0.5)) v   in bf16, and
 //     lse = log-sum-exp of each masked score row in fp32, -inf where the
 //           whole row is masked,

@@ -2,16 +2,18 @@
 sliding-window masks, fully masked tiles skipped.
 
 Port of the Pallas kernel `repro.kernels.flash_attention.flash_attention_fwd`
-as two hand-written CUDA kernels, routed by dtype:
+as two hand-written CUDA kernels for Hopper, routed by dtype, both at
+(dk, dv) in {(64, 64), (128, 128), (256, 256)}:
 
-- bf16: `flash_fwd_sm90_kernel` (`csrc/flash_fwd_sm90.cu`), built for
-  Hopper at (dk, dv) in {(64, 64), (128, 128), (256, 256)}: a persistent
+- bf16: `flash_fwd_sm90_kernel` (`csrc/flash_fwd_sm90.cu`): a persistent
   grid whose CTAs walk 128-row q tiles over key tiles (128 keys, or 64 at
   head dim 256), one producer warpgroup feeding a TMA ring and two
   consumer warpgroups taking turns on `wgmma`;
-- fp32: `flash_fwd_kernel` (`csrc/flash_attention.cu`), scalar FMA, 64 x 64
-  tiles (wgmma has no full-fp32 product), at (64, 64) and (128, 128) only:
-  its tiles do not fit at 256 (ROADMAP B6).
+- fp32: `flash_fwd_f32_sm90_kernel` (`csrc/flash_fwd_f32_sm90.cu`): the
+  tensor cores in TF32 with each operand split into a TF32 high and low
+  part (three `mma.sync` m16n8k8 products: hi*hi + hi*lo + lo*hi), which
+  holds fp32 accuracy; 64-row q tiles of 4 warps over 32-key tiles in a
+  2-stage `cp.async` ring, S, P and O in registers.
 
 Both take any Sq, Skv >= 1 (the Pallas kernel needs them to divide its
 blocks), so the port's CUDA path has no branch to a plain version.
@@ -35,16 +37,14 @@ from . import _build
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
 NEG_INF = -1e30
-#: (dk, dv) pairs the bf16 CUDA kernel is built for.
+#: (dk, dv) pairs the CUDA kernels are built for, in bf16 and fp32.
 HEAD_DIMS = ((64, 64), (128, 128), (256, 256))
-#: (dk, dv) pairs the fp32 CUDA kernel is built for.
-FP32_HEAD_DIMS = ((64, 64), (128, 128))
 #: C entry point of the kernel for each input dtype.
 _ENTRY = {torch.float32: "repro_flash_fwd_f32",
           torch.bfloat16: "repro_flash_fwd_bf16"}
 
 launches = 0        # CUDA kernel launches, both kernels
-fp32_launches = 0   # of those, launches of the fp32 `flash_fwd_kernel`
+fp32_launches = 0   # of those, launches of `flash_fwd_f32_sm90_kernel`
 plain_calls = 0     # plain-PyTorch evaluations (CPU tensors)
 _COUNT_LOCK = threading.Lock()
 
@@ -190,17 +190,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"flash_attention_fwd: no CUDA kernel for head dims dk={dk}, "
             f"dv={dv} (built for {HEAD_DIMS}); the model layer routes head "
             f"dims that are not multiples of 128 blockwise (ROADMAP C1)")
-    if q.dtype == torch.float32 and (dk, dv) not in FP32_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention_fwd: no fp32 CUDA kernel for head dims "
-            f"dk={dk}, dv={dv} (built for {FP32_HEAD_DIMS}); the fp32 "
-            f"forward at 256 is ROADMAP B6")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash_attention_fwd needs a contiguous, "
                              f"16-byte aligned {name}")
-    if q.dtype == torch.float32 and B * Hq > 65535:
-        raise ValueError(f"flash_attention_fwd: B * Hq = {B * Hq} > 65535")
     out = torch.empty((B, Hq, Sq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     entry = getattr(_build.library(), _ENTRY[q.dtype])

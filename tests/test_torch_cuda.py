@@ -163,6 +163,29 @@ FLASH_CASES = [
     (False, 0, 1, 4, 2, 100, 333, 256, torch.bfloat16),
     (True, 0, 2, 16, 1, 1, 1, 256, torch.bfloat16),
     (False, 4, 1, 2, 1, 400, 8, 256, torch.bfloat16),
+    # the fp32 kernel (3xTF32 on the tensor cores) at head dim 256: the
+    # recurrentgemma prefill shape, the 32-key tile's edges, the 64-row q
+    # tile's edges, a window narrower than a key tile, Sq != Skv, one
+    # token, rows that see no key
+    (True, 2048, 2, 16, 1, 3968, 3968, 256, torch.float32),
+    (True, 0, 1, 4, 1, 31, 31, 256, torch.float32),
+    (True, 0, 1, 4, 1, 32, 32, 256, torch.float32),
+    (True, 0, 1, 4, 1, 33, 33, 256, torch.float32),
+    (True, 0, 1, 4, 1, 63, 63, 256, torch.float32),
+    (True, 0, 1, 4, 1, 64, 64, 256, torch.float32),
+    (True, 0, 1, 4, 1, 65, 65, 256, torch.float32),
+    (True, 20, 1, 16, 1, 300, 300, 256, torch.float32),
+    (False, 0, 1, 4, 2, 100, 333, 256, torch.float32),
+    (True, 0, 2, 16, 1, 1, 1, 256, torch.float32),
+    (False, 4, 1, 2, 1, 40, 8, 256, torch.float32),
+    # and at 64 and 128 on the same tiles' edges, with G = 8
+    (True, 0, 1, 16, 2, 31, 31, 64, torch.float32),
+    (True, 0, 1, 16, 2, 33, 33, 64, torch.float32),
+    (True, 0, 1, 16, 2, 65, 65, 64, torch.float32),
+    (True, 0, 1, 16, 2, 32, 32, 128, torch.float32),
+    (True, 0, 1, 16, 2, 63, 63, 128, torch.float32),
+    (True, 0, 1, 16, 2, 129, 129, 128, torch.float32),
+    (False, 4, 1, 16, 2, 400, 8, 128, torch.float32),
 ]
 
 
@@ -193,7 +216,7 @@ def test_flash_matches_plain(card, causal, window, B, Hq, Hkv, Sq, Skv, d,
 @pytest.mark.parametrize("d,dtype,item", [
     (96, torch.bfloat16, "ROADMAP C1"),     # no kernel; the layer routes it
     (384, torch.bfloat16, "ROADMAP C1"),    # a multiple of 128, no kernel
-    (256, torch.float32, "ROADMAP B6"),     # the fp32 kernel stops at 128
+    (384, torch.float32, "ROADMAP C1"),     # no fp32 kernel either
 ])
 def test_flash_head_dim_outside_the_kernel_raises(card, d, dtype, item):
     q, k, v = (t.to(card) for t in _qkv(0, 1, 2, 1, 64, 64, d, dtype))
@@ -212,9 +235,9 @@ def test_flash_counts_launches_only_on_the_card(card):
 
 
 def test_fp32_flash_counts_its_own_launches(card):
-    """An fp32 call launches the scalar `flash_fwd_kernel`: it counts in
-    `launches` and in `fp32_launches`, and its result is the plain
-    version's."""
+    """An fp32 call launches `flash_fwd_f32_sm90_kernel` (3xTF32 on the
+    tensor cores): it counts in `launches` and in `fp32_launches`, and its
+    result is the plain version's."""
     q, k, v = (t.to(card) for t in _qkv(3, 1, 4, 2, 200, 200, 128,
                                         torch.float32))
     fak.reset_counts()

@@ -165,3 +165,128 @@ def test_layer_routes_head_dims_without_a_kernel_blockwise(
     np.testing.assert_allclose(out.float().numpy(),
                                np.asarray(want, np.float32),
                                rtol=2e-2, atol=2e-2)
+
+
+# The fp32 CUDA kernel multiplies on the tensor cores in TF32 (10 stored
+# mantissa bits) with each operand split into a TF32 high part and a TF32
+# low part: hi*hi + hi*lo + lo*hi in fp32, lo*lo dropped. Below, that
+# arithmetic is emulated on the CPU (round-to-nearest TF32 by bit masking;
+# a product of two TF32 values is exact in fp32, so an fp32 matmul of TF32
+# operands is what the tensor core sums) inside the kernel's loop over
+# 32-key tiles, and held to the reference's Pallas kernel.
+NEG_INF = fak.NEG_INF
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round fp32 to the nearest TF32 value, ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_hi @ b_hi + (a_hi @ b_lo + a_lo @ b_hi)
+
+
+def _one_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _tf32(a) @ _tf32(b)
+
+
+def _tf32_flash(q, k, v, causal, window, product, block_k=32):
+    """The fp32 kernel's loop: 32-key tiles, running max and sum, both
+    products through `product`, the Pallas kernel's masking rules."""
+    B, Hq, Sq, d = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    kf = k.repeat_interleave(Hq // Hkv, dim=1)
+    vf = v.repeat_interleave(Hq // Hkv, dim=1)
+    m = torch.full((B, Hq, Sq), NEG_INF)
+    l = torch.zeros((B, Hq, Sq))
+    acc = torch.zeros((B, Hq, Sq, d))
+    qpos = torch.arange(Sq)[:, None]
+    for k0 in range(0, Skv, block_k):
+        kb, vb = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+        s = product(q, kb.transpose(-1, -2)) * d ** -0.5
+        kpos = k0 + torch.arange(kb.shape[2])[None]
+        keep = torch.ones((Sq, kb.shape[2]), dtype=torch.bool)
+        if causal:
+            keep &= qpos >= kpos
+        if window:
+            keep &= qpos - kpos < window
+        s = torch.where(keep, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(s <= NEG_INF / 2, 0.0, torch.exp(s - m_new[..., None]))
+        corr = torch.where(m <= NEG_INF / 2, 0.0, torch.exp(m - m_new))
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + product(p, vb)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)), -torch.inf)
+    return out, lse
+
+
+# causal, window, Hq, Hkv, S, d, scale of q
+TF32_CASES = [
+    (True, 0, 2, 1, 256, 64, 1.0),
+    (True, 0, 2, 1, 256, 128, 1.0),
+    (True, 96, 4, 1, 256, 256, 1.0),
+    (True, 0, 2, 1, 256, 128, 8.0),      # scores in the tens (up to 39)
+]
+
+
+def _tf32_errors(causal, window, Hq, Hkv, S, d, scale, product):
+    (q, k, v), (tq, tk, tv) = _inputs(1, Hq, Hkv, S, S, d, d, "float32",
+                                      seed=d)
+    want, want_lse = ref_fwd(q * scale, k, v, causal=causal, window=window,
+                             block_q=128, block_k=128, interpret=True)
+    out, lse = _tf32_flash(tq * scale, tk, tv, causal, window, product)
+    want = torch.from_numpy(np.array(want, np.float32))
+    want_lse = torch.from_numpy(np.array(want_lse, np.float32))
+    return ((out - want).abs().max().item(),
+            (lse - want_lse).abs().max().item())
+
+
+@pytest.mark.parametrize("causal,window,Hq,Hkv,S,d,scale", TF32_CASES)
+def test_3xtf32_split_holds_the_fp32_tolerances(causal, window, Hq, Hkv, S,
+                                                d, scale):
+    err, lse_err = _tf32_errors(causal, window, Hq, Hkv, S, d, scale,
+                                _split_product)
+    assert err <= 2e-5 and lse_err <= 1e-4, (err, lse_err)
+
+
+@pytest.mark.parametrize("causal,window,Hq,Hkv,S,d,scale", TF32_CASES)
+def test_one_tf32_product_misses_the_fp32_tolerances(causal, window, Hq, Hkv,
+                                                     S, d, scale):
+    """Why the kernel needs the split: one TF32 product per product (what
+    the tensor cores give fp32 inputs unsplit) misses 2e-5 / 1e-4."""
+    err, lse_err = _tf32_errors(causal, window, Hq, Hkv, S, d, scale,
+                                _one_product)
+    assert err > 2e-5 or lse_err > 1e-4, (err, lse_err)
+
+
+def test_tf32_rounding_is_to_nearest():
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -12,
+                      -(1.0 + 2.0 ** -11), 3.0e38, -7.5e-30],
+                     dtype=torch.float32)
+    got = _tf32(x)
+    # ties go away from zero; 10 stored mantissa bits remain
+    assert got.tolist()[:4] == [1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10,
+                                -(1.0 + 2.0 ** -10)]
+    assert (got.view(torch.int32) & 0x1FFF == 0).all()
+    assert torch.allclose(got, x, rtol=2.0 ** -11, atol=0)
+
+
+def test_3xtf32_split_error_grows_with_the_scores():
+    """The split's limit, stated: with q and k scaled by 8 (scores in the
+    hundreds) the dropped lo*lo term and lo's rounding show, and the split
+    misses 2e-5 on out where the plain fp32 version stays within it. The
+    kernel's tolerances hold for scores in the tens (TF32_CASES)."""
+    (q, k, v), (tq, tk, tv) = _inputs(1, 2, 1, 256, 256, 128, 128,
+                                      "float32", seed=128)
+    want, _ = ref_fwd(q * 8, k * 8, v, causal=True, block_q=128,
+                      block_k=128, interpret=True)
+    want = torch.from_numpy(np.array(want, np.float32))
+    split, _ = _tf32_flash(tq * 8, tk * 8, tv, True, 0, _split_product)
+    plain, _ = fak.flash_attention_fwd(tq * 8, tk * 8, tv)
+    assert (split - want).abs().max().item() > 2e-5
+    assert (plain - want).abs().max().item() <= 2e-5
