@@ -21,6 +21,11 @@ Drives the port's main path on one CUDA card and checks every byte:
      of each flash kernel, five of the coding kernel), the fp32 flash
      kernel's SASS must hold TF32 HMMAs at each head dim, and one fp32
      call of the model layer's `flash_attention` must launch it once;
+     the layer's gradient (kernel forward, blockwise PyTorch backward)
+     against the same backward from the plain forward at the train shape
+     and against fp32 autograd through naive attention (2e-2 of max
+     |grad|), with the backward's time beside the forward kernel's and
+     SDPA's forward + backward;
   4. stripe path: UniLRC 180-of-210 (alpha=2, z=10) on 10 clusters x 24
      nodes, 1 MiB blocks, `TorchBackend("cuda")`: a 4 GiB streamed write
      in windows of 8 stripes, a full read, one node lost (degraded read,
@@ -73,11 +78,30 @@ Drives the port's main path on one CUDA card and checks every byte:
      data lost and the payload read back byte for byte; (d) two data
      blocks of local group 0 dropped in all 23 stripes and healed by a
      data-path scheduler in one pattern decode and one XOR;
+ 11. training (`repro_torch.train`) at llama3.2-3b's full width, cut to 8
+     of its 28 layers (a 17.5 GB train state): 8 x 2048 tokens a step in
+     2 microbatches with remat, steps 0-2, a UniLRC 180-of-210 checkpoint
+     of the train state (phase 4's deployment, 93 stripes), step 3, one
+     node lost, a degraded restore (zero cross-cluster bytes, every leaf
+     byte-identical), the rebuild, step 3 replayed from the restored
+     state (loss within 1e-3) and step 4; 32 flash launches a step (8
+     layers x 2 microbatches x forward and recompute), step times and
+     their split, mfu, peak device memory and host VmRSS printed, and
+     the loss on a held-out batch before and after; (b) a witness at the
+     same full width cut to 2 layers and 2 x 256 tokens: three steps of
+     the same settings from one state on the card and on the CPU, loss
+     and grad norm within 2e-2 relative, the first step's gradient leaf
+     by leaf within 2e-2 of each leaf's max |m|; (c) (a)'s model, state
+     and batches at a tenth of the learning rate, whose held-out loss
+     must fall;
+ 12. the training entry point `repro_torch.launch.train.run` at its SMOKE
+     config (head dim 16: blockwise attention, no flash launch), the
+     verify recipe's checkpoint and node-loss drill;
   5. a JSON line of per-kernel numbers (five rows: gf, xor, flash d=128,
      flash d=256, and the fp32 flash kernel at d = 64, 128 and 256, which
-     no serve path runs; gf and xor count their launches per path, the
-     simulator's included), the card line, and the result line
-     `{"ok": true, "device": {...}}` last.
+     no serve path runs; gf, xor and flash d=128 count their launches per
+     path, the simulator's and training's included), the card line, and
+     the result line `{"ok": true, "device": {...}}` last.
 
 Any failed check exits non-zero before the result line. Without a CUDA
 device, or without the repo's `src/repro_torch` beside it, it exits 1.
@@ -1149,6 +1173,541 @@ def sim_path() -> dict:
     return sim_launches
 
 
+# phase 3's gradient check: the flash layer's dq, dk, dv (kernel forward,
+# blockwise PyTorch backward) against its plain forward's at the train
+# shape, and against fp32 autograd through naive attention
+GRAD_TOL = 2e-2
+
+
+def naive_attention(q, k, v, causal: bool, window: int):
+    """fp32 softmax attention with GQA, every score materialised."""
+    import torch
+    G = q.shape[1] // k.shape[1]
+    k, v = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    s = (q @ k.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    qp = torch.arange(q.shape[2], device=q.device)[:, None]
+    kp = torch.arange(k.shape[2], device=q.device)[None]
+    mask = torch.ones_like(s[0, 0], dtype=torch.bool)
+    if causal:
+        mask &= qp >= kp
+    if window:
+        mask &= qp - kp < window
+    return torch.softmax(s.masked_fill(~mask, -torch.inf), -1) @ v
+
+
+def flash_grad_check(gen, dev) -> dict:
+    """Checks the layer's gradient (exits on a miss) and times the
+    backward beside the forward kernel and SDPA's forward + backward.
+    Launches made here are checks, not path launches."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.models import layers
+
+    def rel(got, want) -> float:
+        return ((got.float() - want.float()).abs().max().item()
+                / want.float().abs().max().item())
+
+    def layer_grads(q, k, v, do, window):
+        leaves_ = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = fak.launches
+        layers.flash_attention(*leaves_, causal=True,
+                               window=window).backward(do)
+        torch.cuda.synchronize()
+        check(fak.launches == before + 1, "layer gradient: not one launch")
+        return [t.grad for t in leaves_]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    # (a) the train shape: the same backward from the plain forward
+    B, Hq, Hkv, S, d = 4, 32, 8, 2048, 128
+    q, k, v, do = randn(B, Hq, S, d), randn(B, Hkv, S, d), \
+        randn(B, Hkv, S, d), randn(B, Hq, S, d)
+    got = layer_grads(q, k, v, do, 0)
+    p_out, p_lse = fak.flash_attention_fwd_plain(q, k, v, causal=True)
+    want = layers.flash_attention_bwd(q, k, v, p_out, p_lse, do, causal=True)
+    err_plain = max(rel(g, w) for g, w in zip(got, want))
+    del got, want, p_out, p_lse
+    out, lse = fak.flash_attention_fwd(q, k, v, causal=True)
+    bwd_ms = time_ms(lambda: layers.flash_attention_bwd(
+        q, k, v, out, lse, do, causal=True), 5)
+    fwd_ms = time_ms(lambda: fak.flash_attention_fwd(q, k, v, causal=True),
+                     10)
+    lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
+
+    def library():          # timed as a yardstick only, never on the path
+        torch.nn.functional.scaled_dot_product_attention(
+            lq, lk, lv, is_causal=True, enable_gqa=True).backward(do)
+    lib_ms = time_ms(library, 10)
+    del q, k, v, do, out, lse, lq, lk, lv
+    phase("flash grad vs plain", B=B, Hq=Hq, Hkv=Hkv, S=S, d=d, causal=True,
+          max_rel_err=f"{err_plain:.3e}", tol=GRAD_TOL,
+          bwd_ms=f"{bwd_ms:.3f}", fwd_kernel_ms=f"{fwd_ms:.4f}",
+          bwd_over_fwd=f"{bwd_ms / fwd_ms:.1f}",
+          sdpa_fwd_bwd_ms=f"{lib_ms:.4f}")
+    check(err_plain <= GRAD_TOL, f"flash gradient vs plain {err_plain}")
+    # (b) fp32 autograd through naive attention, causal and windowed
+    errs = {}
+    for window in (0, 128):
+        q, k, v, do = randn(1, 4, 512, 128), randn(1, 2, 512, 128), \
+            randn(1, 2, 512, 128), randn(1, 4, 512, 128)
+        got = layer_grads(q, k, v, do, window)
+        ref = [t.float().requires_grad_() for t in (q, k, v)]
+        naive_attention(*ref, True, window).backward(do.float())
+        errs[window] = max(rel(g, r.grad) for g, r in zip(got, ref))
+    phase("flash grad vs naive fp32", B=1, Hq=4, Hkv=2, S=512, d=128,
+          causal=True, windows="0,128",
+          max_rel_err=json.dumps({w: f"{e:.3e}" for w, e in errs.items()}),
+          tol=GRAD_TOL)
+    check(max(errs.values()) <= GRAD_TOL, f"flash gradient vs naive {errs}")
+    return dict(backward_ms=bwd_ms, backward_max_rel_err=err_plain,
+                library_fwd_bwd_ms=lib_ms)
+
+
+# phase 11: training at llama3.2-3b's full width, cut to 8 of its 28
+# layers: save and restore each hold the serialized buffer beside the
+# store's stripes (2.17 x the state on the host), and the 28-layer state
+# (47.4 GB) would need 102.8 GB of the 96 GiB host; 8 layers are 17.5 GB
+TRAIN = dict(layers=8, batch=8, seq=2048, accum=2, remat="block", lr=1e-3,
+             warmup_steps=10, clip_norm=1.0, save_at=3, stripes=93,
+             heldout=1000, low_lr=1e-4)
+FLASH_PER_STEP = TRAIN["layers"] * TRAIN["accum"] * 2   # + the recompute
+
+
+def heldout_loss(model, ds) -> float:
+    """`loss_fn` without grad on the batch of step TRAIN["heldout"], which
+    no run here trains on, in microbatches of TRAIN["accum"]."""
+    import torch
+
+    from repro_torch.train import loss_fn
+    tokens, labels = (torch.as_tensor(t, device=model.embed.device)
+                      for t in ds.batch(TRAIN["heldout"]))
+    mb = tokens.shape[0] // TRAIN["accum"]
+    with torch.no_grad():
+        return statistics.fmean(
+            float(loss_fn(model, tokens[i:i + mb], labels[i:i + mb])[0])
+            for i in range(0, tokens.shape[0], mb))
+
+
+def vmrss_gb() -> float:
+    """This process's resident host memory now (VmRSS), in GB."""
+    for line in pathlib.Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) * 1024 / 1e9
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+def train_path(seed: int) -> dict:
+    """Phase 11: `init_train_state`, `make_train_step` and the UniLRC
+    checkpoint drill the training CLI runs, at full width: steps 0-2, a
+    save at step 3, step 3, a node lost, a degraded restore, the rebuild,
+    step 3 again from the restored state, and step 4. Checks the losses,
+    the flash launches per step, the launches of the save and the restore,
+    every restored byte and the replayed loss; exits on a miss. Returns
+    the path's launches per kernel."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.ckpt import BlockStore, CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_unilrc
+    from repro_torch.data import DataConfig, SyntheticTokenDataset
+    from repro_torch.io import TorchBackend
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.kernels import gf_bitmatmul as gfk
+    from repro_torch.kernels import xor_reduce as xrk
+    from repro_torch.models import layers, uniform_segments
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.topo import Topology
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step, train_state_from_jax,
+                                   train_state_to_tree)
+    from repro_torch.train import step as step_mod
+
+    dev = torch.device("cuda")
+    full = get_config("llama3.2-3b")
+    cfg = dataclasses.replace(full, name=f"llama3.2-3b-{TRAIN['layers']}l",
+                              segments=uniform_segments("attn",
+                                                        TRAIN["layers"]))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, gen, dev)
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in state.params)
+    state_bytes = sum(p.numel() * (p.element_size() + 12)
+                      for p in state.params)
+    phase("train init", arch=cfg.name, layers=cfg.num_layers,
+          of_layers=full.num_layers, d_model=cfg.d_model,
+          q_heads=cfg.num_heads_padded, kv_heads=cfg.num_kv_heads_padded,
+          d_ff=cfg.d_ff, vocab=cfg.vocab_size, params=nparams,
+          param_count=cfg.param_count(), state_GB=f"{state_bytes / 1e9:.3f}",
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    ds = SyntheticTokenDataset(DataConfig(cfg.vocab_size, S, B, seed=0))
+    ocfg = AdamWConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup_steps"],
+                       total_steps=TRAIN["save_at"] + 2,
+                       clip_norm=TRAIN["clip_norm"])
+    step_fn = make_train_step(cfg, ocfg, TrainConfig(
+        accum=TRAIN["accum"], remat=TRAIN["remat"]))
+    heldout = {"before": heldout_loss(state.model, ds)}
+
+    # CUDA events around the flash forward kernel, the attention backward
+    # and the optimizer, inside each step
+    spans: dict[str, list] = {"flash_fwd": [], "attn_bwd": [], "optim": []}
+
+    def timed(name, fn):
+        def wrapper(*args, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*args, **kw)
+            e1.record()
+            spans[name].append((e0, e1))
+            return out
+        return wrapper
+    originals = (fak.flash_attention_fwd, layers.flash_attention_bwd,
+                 step_mod.adamw_update)
+    fak.flash_attention_fwd = timed("flash_fwd", originals[0])
+    layers.flash_attention_bwd = timed("attn_bwd", originals[1])
+    step_mod.adamw_update = timed("optim", originals[2])
+    flops = (6 * cfg.param_count() * B * S + 12 * cfg.num_layers * B
+             * cfg.num_heads * S * S // 2 * cfg.resolved_head_dim)
+    launches = {"flash_attention": 0, "gf_bitmatmul": 0, "xor_reduce": 0}
+    steps: list[dict] = []
+
+    def train_step(state, i, tag=""):
+        tokens, labels = ds.batch(i)
+        for v in spans.values():
+            v.clear()
+        fak.reset_counts()
+        layers.reset_blockwise_calls()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        w0 = time.perf_counter()
+        e0.record()
+        state, m = step_fn(state, tokens, labels)
+        e1.record()
+        e1.synchronize()
+        wall = time.perf_counter() - w0
+        ms = e0.elapsed_time(e1)
+        split = {k: sum(a.elapsed_time(b) for a, b in v)
+                 for k, v in spans.items()}
+        row = dict(step=i, loss=float(m["loss"]),
+                   grad_norm=float(m["grad_norm"]), lr=float(m["lr"]),
+                   ms=ms, wall_s=wall, **split,
+                   rest=ms - sum(split.values()),
+                   flash=fak.launches, plain=fak.plain_calls,
+                   blockwise=layers.blockwise_calls)
+        phase(f"train step{tag}", step=i, loss=f"{row['loss']:.6f}",
+              grad_norm=f"{row['grad_norm']:.4f}", lr=f"{row['lr']:.3e}",
+              step_ms=f"{ms:.2f}", tokens_s=f"{B * S / (ms / 1e3):.1f}",
+              mfu=f"{flops / (ms / 1e3) / BF16_OPS_PER_S:.4f}",
+              flash_fwd_ms=f"{split['flash_fwd']:.2f}",
+              attn_bwd_ms=f"{split['attn_bwd']:.2f}",
+              optim_ms=f"{split['optim']:.2f}",
+              rest_ms=f"{row['rest']:.2f}", flash_launches=fak.launches,
+              plain=fak.plain_calls, blockwise=layers.blockwise_calls,
+              peak_device_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+        check(math.isfinite(row["loss"]) and math.isfinite(row["grad_norm"]),
+              f"step {i}: loss {row['loss']}, grad norm {row['grad_norm']}")
+        check(fak.launches == FLASH_PER_STEP and fak.plain_calls == 0
+              and layers.blockwise_calls == 0,
+              f"step {i}: {fak.launches} flash launches (want "
+              f"{FLASH_PER_STEP}), {fak.plain_calls} plain, "
+              f"{layers.blockwise_calls} blockwise")
+        launches["flash_attention"] += fak.launches
+        steps.append(row)
+        return state
+
+    try:
+        for i in range(TRAIN["save_at"]):
+            state = train_step(state, i)
+
+        # the checkpoint at step 3: phase 4's deployment, 1 MiB blocks,
+        # windows of 8 stripes
+        store = BlockStore(Topology(num_clusters=10, nodes_per_cluster=24))
+        mgr = CheckpointManager(store, make_unilrc(2, 10), block_size=MIB,
+                                backend=TorchBackend("cuda"))
+        mgr.codec.max_batch_stripes = 8
+        tree = train_state_to_tree(state)
+        rss = {"before_save": vmrss_gb()}
+        ckpt_bytes = sum(t.numel() * t.element_size() for t in leaves(tree))
+        gfk.reset_counts()
+        xrk.reset_counts()
+        t0 = time.perf_counter()
+        nstripes = mgr.save(tree, step=TRAIN["save_at"])
+        save_s = time.perf_counter() - t0
+        rss["after_save"] = vmrss_gb()
+        phase("train ckpt save", stripes=nstripes, bytes=ckpt_bytes,
+              seconds=f"{save_s:.3f}",
+              GiB_s=f"{ckpt_bytes / GIB / save_s:.3f}",
+              gf_launches=gfk.launches, xor_launches=xrk.launches,
+              vmrss_GB=json.dumps({k: f"{v:.3f}" for k, v in rss.items()}))
+        check(nstripes == TRAIN["stripes"], f"{nstripes} stripes")
+        check(gfk.launches == math.ceil(nstripes / 8) and xrk.launches == 0,
+              f"save: {gfk.launches} encode launches for {nstripes} "
+              f"stripes, {xrk.launches} xor")
+        launches["gf_bitmatmul"] += gfk.launches
+
+        state = train_step(state, TRAIN["save_at"], " first pass")
+        first = steps[-1]["loss"]
+
+        # one node lost: degraded restore, cluster-local, byte for byte
+        store.fail_node(store.node_of(0, 0))
+        gfk.reset_counts()
+        xrk.reset_counts()
+        t0 = time.perf_counter()
+        restored, report = mgr.restore(TRAIN["save_at"])
+        restore_s = time.perf_counter() - t0
+        rss["after_restore"] = vmrss_gb()
+        phase("train ckpt restore", degraded_blocks=report.degraded_blocks,
+              total_blocks=report.total_blocks_read,
+              cross_cluster_bytes=report.cross_cluster_bytes,
+              seconds=f"{restore_s:.3f}",
+              GiB_s=f"{ckpt_bytes / GIB / restore_s:.3f}",
+              gf_launches=gfk.launches, xor_launches=xrk.launches,
+              vmrss_GB=json.dumps({k: f"{v:.3f}" for k, v in rss.items()}))
+        check(report.degraded_blocks > 0, "restore was not degraded")
+        check(report.cross_cluster_bytes == 0, "restore crossed clusters")
+        check(gfk.launches == 0 and xrk.launches > 0,
+              f"restore: {gfk.launches} gf, {xrk.launches} xor launches")
+        launches["xor_reduce"] += xrk.launches
+        nleaves = 0
+        for saved, back in zip(leaves(tree), leaves(restored), strict=True):
+            check(saved.shape == back.shape and saved.dtype == back.dtype,
+                  f"restored leaf {nleaves}: {back.shape} {back.dtype}")
+            check(torch.equal(
+                saved.flatten().view(torch.uint8),
+                back.to(saved.device).flatten().view(torch.uint8)),
+                f"restored leaf {nleaves} differs")
+            nleaves += 1
+        phase("train ckpt bytes", leaves=nleaves, identical=True)
+        del tree
+        rebuilt = mgr.reconstruct_failures()
+        check(not store.failed_nodes and rebuilt > 0, f"rebuilt {rebuilt}")
+
+        # the restored state back on the card: step 3 again, then step 4
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = train_state_from_jax(cfg, restored, dev)
+        del restored, mgr, store
+        gc.collect()
+        check(int(state.step) == TRAIN["save_at"], f"step {int(state.step)}")
+        state = train_step(state, TRAIN["save_at"], " replay")
+        replay = steps[-1]["loss"]
+        rel = abs(replay - first) / abs(first)
+        phase("train replay", first_pass=f"{first:.6f}",
+              replay=f"{replay:.6f}", rel=f"{rel:.3e}", bound=1e-3,
+              bitwise=replay == first)
+        check(rel <= 1e-3, f"replayed step {TRAIN['save_at']}: {rel}")
+        state = train_step(state, TRAIN["save_at"] + 1)
+    finally:
+        (fak.flash_attention_fwd, layers.flash_attention_bwd,
+         step_mod.adamw_update) = originals
+    heldout["after"] = heldout_loss(state.model, ds)
+    steady = steps[1:TRAIN["save_at"]]
+    step_ms = statistics.median(r["ms"] for r in steady)
+    phase("train path", steps=len(steps), step_ms=f"{step_ms:.2f}",
+          tokens_s=f"{B * S / (step_ms / 1e3):.1f}",
+          mfu=f"{flops / (step_ms / 1e3) / BF16_OPS_PER_S:.4f}",
+          flops_per_step=flops,
+          split_ms=json.dumps({k: round(statistics.median(
+              r[k] for r in steady), 3) for k in
+              ("flash_fwd", "attn_bwd", "optim", "rest")}),
+          save_s=f"{save_s:.3f}", restore_s=f"{restore_s:.3f}",
+          peak_device_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+          kernel_launches=json.dumps(launches),
+          losses=json.dumps([round(r["loss"], 6) for r in steps]),
+          heldout_loss=json.dumps({k: round(v, 6)
+                                   for k, v in heldout.items()}))
+    check(all(map(math.isfinite, heldout.values())), f"held-out {heldout}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_low_lr(seed: int) -> None:
+    """Phase 11c: phase 11's model, initial state (the same seed) and
+    batches, five steps at a tenth of its learning rate, on the card. The
+    held-out loss must fall. Exits on a miss."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokenDataset
+    from repro_torch.models import uniform_segments
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                              segments=uniform_segments("attn",
+                                                        TRAIN["layers"]))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    state = init_train_state(cfg, gen, dev)
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    ds = SyntheticTokenDataset(DataConfig(cfg.vocab_size, S, B, seed=0))
+    step_fn = make_train_step(cfg, AdamWConfig(
+        lr=TRAIN["low_lr"], warmup_steps=TRAIN["warmup_steps"],
+        total_steps=TRAIN["save_at"] + 2, clip_norm=TRAIN["clip_norm"]),
+        TrainConfig(accum=TRAIN["accum"], remat=TRAIN["remat"]))
+    heldout = {"before": heldout_loss(state.model, ds)}
+    losses = []
+    for i in range(TRAIN["save_at"] + 2):
+        state, m = step_fn(state, *ds.batch(i))
+        losses.append(round(float(m["loss"]), 6))
+    heldout["after"] = heldout_loss(state.model, ds)
+    phase("train low lr", lr=TRAIN["low_lr"], losses=json.dumps(losses),
+          heldout_loss=json.dumps({k: round(v, 6)
+                                   for k, v in heldout.items()}))
+    check(all(map(math.isfinite, losses)), f"losses {losses}")
+    check(heldout["after"] < heldout["before"],
+          f"at lr {TRAIN['low_lr']} the held-out loss did not fall: "
+          f"{heldout}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# phase 11's witness: phase 11's train step at llama3.2-3b's full width
+# (vocab 128,256, 24 -> 32 heads with ghosts, accum 2, remat, the same
+# optimizer settings) on the card and on the CPU, whose arithmetic the CPU
+# tests hold to the reference's; cut to 2 layers and 2 x 256 tokens a
+# step so that a CPU step takes seconds
+WITNESS = dict(layers=2, batch=2, seq=256, steps=3)
+
+
+def train_witness(seed: int) -> None:
+    """Phase 11b: the same initial state, from `seed` on the CPU, and the
+    same batches on the card and on the CPU for WITNESS["steps"] steps of
+    phase 11's settings. Checks each step's loss and grad norm within 2e-2
+    relative, the first step's gradient leaf by leaf (the first moment m,
+    (1 - b1) x the clipped gradient, within 2e-2 of each leaf's max |m|),
+    and that the card's attention went through the flash kernel. Exits on
+    a miss."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokenDataset
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.models import layers, uniform_segments
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step, train_state_from_jax,
+                                   train_state_to_tree)
+
+    dev = torch.device("cuda")
+    full = get_config("llama3.2-3b")
+    cfg = dataclasses.replace(full, name=f"llama3.2-3b-{WITNESS['layers']}l",
+                              segments=uniform_segments("attn",
+                                                        WITNESS["layers"]))
+    t0 = time.perf_counter()
+    host = init_train_state(cfg, torch.Generator().manual_seed(seed), "cpu")
+    card = train_state_from_jax(cfg, train_state_to_tree(host), dev)
+    names = [n for n, _ in host.model.named_parameters()]
+    phase("train witness init", arch=cfg.name, params=cfg.param_count(),
+          q_heads=cfg.num_heads_padded, vocab=cfg.vocab_size,
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    B, S = WITNESS["batch"], WITNESS["seq"]
+    ds = SyntheticTokenDataset(DataConfig(cfg.vocab_size, S, B, seed=0))
+    step = make_train_step(
+        cfg, AdamWConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup_steps"],
+                         total_steps=WITNESS["steps"],
+                         clip_norm=TRAIN["clip_norm"]),
+        TrainConfig(accum=TRAIN["accum"], remat=TRAIN["remat"]))
+    per_step = WITNESS["layers"] * TRAIN["accum"] * 2
+    losses: dict[str, list[float]] = {"card": [], "cpu": []}
+    for i in range(WITNESS["steps"]):
+        tokens, labels = ds.batch(i)
+        fak.reset_counts()
+        layers.reset_blockwise_calls()
+        card, got = step(card, tokens, labels)
+        torch.cuda.synchronize()
+        counts = (fak.launches, fak.plain_calls, layers.blockwise_calls)
+        t0 = time.perf_counter()
+        host, want = step(host, tokens, labels)
+        cpu_s = time.perf_counter() - t0
+        rel = {k: abs(float(got[k]) - float(want[k])) / abs(float(want[k]))
+               for k in ("loss", "grad_norm")}
+        losses["card"].append(float(got["loss"]))
+        losses["cpu"].append(float(want["loss"]))
+        phase("train witness step", step=i,
+              loss_card=f"{float(got['loss']):.6f}",
+              loss_cpu=f"{float(want['loss']):.6f}",
+              grad_norm_card=f"{float(got['grad_norm']):.4f}",
+              grad_norm_cpu=f"{float(want['grad_norm']):.4f}",
+              rel_loss=f"{rel['loss']:.3e}",
+              rel_grad_norm=f"{rel['grad_norm']:.3e}", bound=2e-2,
+              cpu_step_s=f"{cpu_s:.2f}", flash_launches=counts[0],
+              plain=counts[1], blockwise=counts[2])
+        check(counts == (per_step, 0, 0),
+              f"witness step {i}: (flash, plain, blockwise) = {counts}, "
+              f"want ({per_step}, 0, 0)")
+        check(math.isfinite(losses["card"][-1]),
+              f"witness step {i}: loss {losses['card'][-1]}")
+        for k, r in rel.items():
+            check(r <= 2e-2, f"witness step {i}: {k} card "
+                  f"{float(got[k])} vs cpu {float(want[k])}")
+        if i == 0:
+            worst = (0.0, "")
+            for name, a, b in zip(names, host.opt["m"], card.opt["m"]):
+                scale = a.abs().max().item()
+                err = (b.cpu() - a).abs().max().item()
+                check(err <= 2e-2 * scale,
+                      f"witness step 0: m of {name} off by {err} "
+                      f"(max |m| {scale})")
+                if scale and err / scale > worst[0]:
+                    worst = (err / scale, name)
+            phase("train witness grads", leaves=len(names),
+                  max_rel_err=f"{worst[0]:.3e}", worst_leaf=worst[1],
+                  bound=2e-2)
+    phase("train witness", steps=WITNESS["steps"],
+          losses=json.dumps({k: [round(x, 6) for x in v]
+                             for k, v in losses.items()}))
+    del host, card
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_cli_phase() -> None:
+    """Phase 12: `repro_torch.launch.train.run` on the card at its SMOKE
+    config (head dim 16: blockwise attention, the same backward), the
+    verify recipe's drill. Exits on a miss."""
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import layers
+
+    fak.reset_counts()
+    layers.reset_blockwise_calls()
+    t0 = time.perf_counter()
+    losses = train_cli.run(["--smoke", "--steps", "30", "--batch", "2",
+                            "--seq", "64", "--ckpt-every", "10",
+                            "--fail-node", "5", "--fail-at", "20",
+                            "--log-every", "10"])
+    phase("train cli", seconds=f"{time.perf_counter() - t0:.2f}",
+          steps=len(losses), first=f"{losses[0]:.4f}",
+          last=f"{losses[-1]:.4f}", flash_launches=fak.launches,
+          plain=fak.plain_calls, blockwise=layers.blockwise_calls)
+    check(len(losses) == 30 and losses[-1] < losses[0],
+          f"training CLI: losses {losses[0]} -> {losses[-1]}")
+    check(fak.launches == 0 and fak.plain_calls == 0,
+          "flash kernel or plain version at head dim 16")
+    check(layers.blockwise_calls == 30 * 2, "blockwise attention calls")
+
+
 def leaves(node):
     """The tensors of a nested dict / tuple / list tree, in sorted-key
     order."""
@@ -1404,6 +1963,8 @@ def main() -> None:
     flash_case(1, 16, 1, 300, 300, 256, bf16, True, window=40, reps=10)
     flash_case(1, 16, 1, 1024, 3968, 256, bf16, False, reps=10)
     flash_case(2, 16, 1, 1, 1, 256, bf16, True, reps=10)
+    # the flash layer's gradient: kernel forward, blockwise backward
+    flash_grad = flash_grad_check(gen, dev)
     faulthandler.cancel_dump_traceback_later()
 
     # 4. main path ------------------------------------------------------------
@@ -1481,6 +2042,23 @@ def main() -> None:
     phase("sim phase", seconds=f"{time.perf_counter() - t0:.2f}",
           peak_host_rss_GB=f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9:.3f}")
 
+    # 11. training at full width (8 of 28 layers) with the UniLRC
+    # checkpoint drill --------------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train = train_path(2505)
+    phase("train phase", seconds=f"{time.perf_counter() - t0:.2f}",
+          peak_host_rss_GB=f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9:.3f}")
+    t0 = time.perf_counter()
+    train_witness(2505)
+    train_low_lr(2505)
+    phase("train witness phase", seconds=f"{time.perf_counter() - t0:.2f}",
+          vmrss_GB=f"{vmrss_gb():.3f}")
+
+    # 12. the training entry point at its SMOKE config (head dim 16) --------
+    train_cli_phase()
+
     # 5. results ----------------------------------------------------------------
     fp32_launches = {"serve": flash["fp32_launches"],
                      "serve_smoke": smoke_counts["fp32_launches"],
@@ -1492,7 +2070,8 @@ def main() -> None:
              launches=launches["gf_bitmatmul"],
              launches_by_path={"stripe": launches["gf_bitmatmul"],
                                "frontend": frontend["gf_bitmatmul"],
-                               "sim": sim["gf_bitmatmul"]},
+                               "sim": sim["gf_bitmatmul"],
+                               "train": train["gf_bitmatmul"]},
              library_ms=None, **gf_main),
         dict(name="xor_reduce", kernel="xor_fold_kernel", route="cuda",
              source="src/repro_torch/csrc/coding_kernels.cu",
@@ -1500,15 +2079,17 @@ def main() -> None:
              launches=launches["xor_reduce"],
              launches_by_path={"stripe": launches["xor_reduce"],
                                "frontend": frontend["xor_reduce"],
-                               "sim": sim["xor_reduce"]},
+                               "sim": sim["xor_reduce"],
+                               "train": train["xor_reduce"]},
              library_ms=None, **xor_main),
         dict(name="flash_attention", kernel="flash_fwd_sm90_kernel",
              route="cuda", source="src/repro_torch/csrc/flash_fwd_sm90.cu",
              replaces="src/repro/kernels/flash_attention.py:116",
              launches=flash["launches"] - flash["fp32_launches"],
              launches_by_path={"serve": flash["launches"]
-                               - flash["fp32_launches"]},
-             **flash_main),
+                               - flash["fp32_launches"],
+                               "train": train["flash_attention"]},
+             **flash_main, **flash_grad),
         dict(name="flash_attention_d256", kernel="flash_fwd_sm90_kernel<256>",
              route="cuda", source="src/repro_torch/csrc/flash_fwd_sm90.cu",
              replaces="src/repro/kernels/flash_attention.py:116",

@@ -23,16 +23,15 @@ ARCHS = {
 }
 
 #: Architectures the port can build, and what the others wait for.
-PORTED = ("llama3.2-3b", "recurrentgemma-9b")
+PORTED = ("llama3.2-3b", "phi4-mini-3.8b", "qwen1.5-32b",
+          "recurrentgemma-9b")
 _PENDING = {
-    "kimi-k2-1t-a32b": "MoE attention blocks",
-    "phi3.5-moe-42b-a6.6b": "MoE attention blocks",
-    "qwen1.5-32b": "its configuration module (qkv bias)",
-    "minicpm3-4b": "MLA blocks",
-    "phi4-mini-3.8b": "its configuration module",
-    "rwkv6-7b": "RWKV6 blocks",
-    "llama-3.2-vision-11b": "cross-attention blocks",
-    "hubert-xlarge": "an encoder-only front end",
+    "kimi-k2-1t-a32b": "its MoE attention blocks (`attn_moe`)",
+    "phi3.5-moe-42b-a6.6b": "its MoE attention blocks (`attn_moe`)",
+    "minicpm3-4b": "its MLA blocks (`mla`)",
+    "rwkv6-7b": "its RWKV6 blocks (`rwkv`)",
+    "llama-3.2-vision-11b": "its cross-attention blocks (`cross_attn`)",
+    "hubert-xlarge": "an encoder-only front end with embedding-free inputs",
 }
 
 # Paper Table 2 code schemes (used by the EC checkpoint layer)

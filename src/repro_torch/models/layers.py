@@ -14,9 +14,11 @@ Attention in train and prefill mode routes by shape, as the reference's
 go through its wrapper (the hand-written CUDA kernel on the card, its
 plain version on the CPU); every other head dim takes the kernel's plain
 blockwise forward, the counterpart of the reference's jnp
-`_flash_fwd_impl`, on either device. Decode
-attends one token against the cache with plain tensor ops, as the
-reference does with einsums.
+`_flash_fwd_impl`, on either device. Where autograd records the call,
+the backward is `flash_attention_bwd`, the reference's blockwise jnp
+`_flash_bwd_impl` in PyTorch (the reference has no Pallas backward).
+Decode attends one token against the cache with plain tensor ops, as
+the reference does with einsums.
 """
 from __future__ import annotations
 
@@ -111,27 +113,145 @@ def reset_blockwise_calls() -> None:
         blockwise_calls = 0
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, window: int = 0) -> torch.Tensor:
-    """q: (B, Hq, Sq, dk), k: (B, Hkv, Skv, dk), v: (B, Hkv, Skv, dv) ->
-    (B, Hq, Sq, dv). Forward only: the training slice brings the
-    backward. Routed as the reference's `_flash_fn` routes: (dk, dv) in
-    `fa.HEAD_DIMS` (64, 128 and 256), and every dk that is a multiple of
-    128, go to the flash kernel's wrapper, which raises on the card for a
-    pair it lacks; every other head dim takes the blockwise
-    forward `fa.flash_attention_fwd_plain`, the counterpart of the
-    reference's jnp `_flash_fwd_impl`, counted in `blockwise_calls`."""
+def _chunk(size: int, target: int = 1024) -> int:
+    """The largest divisor of `size` up to `target` (the reference's
+    chunking of the blockwise backward)."""
+    c = min(size, target)
+    while size % c:
+        c -= 1
+    return c
+
+
+def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool, window: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out, fp32 lse) through the route of `flash_attention`."""
     global blockwise_calls
     dk, dv = q.shape[-1], v.shape[-1]
     if (dk, dv) not in fa.HEAD_DIMS and dk % 128:
         with _BLOCKWISE_LOCK:
             blockwise_calls += 1
         return fa.flash_attention_fwd_plain(q, k, v, causal=causal,
-                                            window=window)[0]
-    out, _ = fa.flash_attention_fwd(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), causal=causal,
-                                    window=window)
-    return out
+                                            window=window)
+    return fa.flash_attention_fwd(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=causal,
+                                  window=window)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash forward with the blockwise backward: saves q, k, v, out
+    and lse, nothing of Sq x Skv elements."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = _flash_forward(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = (causal, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window = ctx.opts
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=causal, window=window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, window: int = 0) -> torch.Tensor:
+    """q: (B, Hq, Sq, dk), k: (B, Hkv, Skv, dk), v: (B, Hkv, Skv, dv) ->
+    (B, Hq, Sq, dv), differentiable in q, k and v. Routed as the
+    reference's `_flash_fn` routes: (dk, dv) in `fa.HEAD_DIMS` (64, 128
+    and 256), and every dk that is a multiple of 128, go to the flash
+    kernel's wrapper, which raises on the card for a pair it lacks; every
+    other head dim takes the blockwise forward
+    `fa.flash_attention_fwd_plain`, the counterpart of the reference's
+    jnp `_flash_fwd_impl`, counted in `blockwise_calls`. The backward is
+    `flash_attention_bwd`, the reference's `_flash_bwd_impl`; it runs
+    only where autograd records the call (an input requires grad and
+    grad mode is on), so under `torch.no_grad` or `inference_mode` the
+    call is the forward alone and saves nothing."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, bool(causal), int(window))
+    return _flash_forward(q, k, v, causal, window)[0]
+
+
+def _pair_mask(q0: int, nq: int, k0: int, nk: int, causal: bool,
+               window: int, device) -> torch.Tensor | bool | None:
+    """The mask of one (q chunk, kv chunk) pair: None when every pair is
+    visible, False when none is, else a (nq, nk) bool tensor."""
+    lo = q0 - (k0 + nk - 1)         # smallest q_pos - k_pos in the block
+    hi = q0 + nq - 1 - k0           # largest
+    if (causal and hi < 0) or (window and lo >= window):
+        return False
+    if (not causal or lo >= 0) and (not window or hi < window):
+        return None
+    qp = torch.arange(q0, q0 + nq, device=device)[:, None]
+    kp = torch.arange(k0, k0 + nk, device=device)[None]
+    mask = torch.ones((nq, nk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qp >= kp
+    if window:
+        mask &= qp - kp < window
+    return mask
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool,
+                        window: int = 0
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """FlashAttention-2 backward, the reference's `_flash_bwd_impl` in
+    PyTorch: p-blocks recomputed from (q, k, lse); an outer loop over kv
+    chunks accumulates their dk, dv, an inner loop over q chunks adds each
+    pair's share of dq. Chunks are `_chunk(S, 1024)`. D = rowsum(dO * O)
+    in fp32; p and ds are rounded to the io dtype before their products,
+    and every product accumulates in fp32 (its operands are taken to fp32
+    first: a product of two bf16 values is exact in fp32, as the
+    reference's `preferred_element_type=float32` keeps it). Pairs that
+    the causal or window mask hides entirely are skipped, as the
+    reference's "bounded" schedule skips them: their shares are zero.
+    lse: (B, Hq, Sq) fp32.
+    Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    B, Hq, Sq, dk_dim = q.shape
+    Hkv, Skv, dv_dim = k.shape[1], k.shape[2], v.shape[-1]
+    G = Hq // Hkv
+    scale = dk_dim ** -0.5
+    qc, kc = _chunk(Sq), _chunk(Skv)
+    io, f32, dev = q.dtype, torch.float32, q.device
+
+    qg = q.reshape(B, Hkv, G, Sq, dk_dim)
+    dog = dout.reshape(B, Hkv, G, Sq, dv_dim)
+    Dvec = (dog.to(f32) * out.reshape(B, Hkv, G, Sq, dv_dim).to(f32)).sum(-1)
+    lse = torch.where(torch.isfinite(lse), lse, 0.0).reshape(B, Hkv, G, Sq)
+    dq = torch.zeros((B, Hkv, G, Sq, dk_dim), dtype=f32, device=dev)
+    dkf = torch.zeros((B, Hkv, Skv, dk_dim), dtype=f32, device=dev)
+    dvf = torch.zeros((B, Hkv, Skv, dv_dim), dtype=f32, device=dev)
+    for k0 in range(0, Skv, kc):
+        ks = k[:, :, k0:k0 + kc].to(f32)
+        vs = v[:, :, k0:k0 + kc].to(f32)
+        dkj, dvj = dkf[:, :, k0:k0 + kc], dvf[:, :, k0:k0 + kc]
+        for q0 in range(0, Sq, qc):
+            mask = _pair_mask(q0, qc, k0, kc, causal, window, dev)
+            if mask is False:
+                continue
+            rows = slice(q0, q0 + qc)
+            qx = qg[:, :, :, rows].to(f32)
+            do = dog[:, :, :, rows].to(f32)
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qx, ks).mul_(scale)
+            p = s.sub_(lse[:, :, :, rows, None]).exp_()
+            if mask is not None:
+                p.masked_fill_(~mask, 0.0)
+            dvj += torch.einsum("bhgqk,bhgqd->bhkd", p.to(io).to(f32), do)
+            dp = torch.einsum("bhgqd,bhkd->bhgqk", do, vs)
+            ds = p.mul_(dp.sub_(Dvec[:, :, :, rows, None])).to(io).to(f32)
+            dq[:, :, :, rows] += torch.einsum("bhgqk,bhkd->bhgqd", ds,
+                                              ks).mul_(scale)
+            dkj += torch.einsum("bhgqk,bhgqd->bhkd", ds, qx).mul_(scale)
+    return (dq.reshape(B, Hq, Sq, dk_dim).to(q.dtype), dkf.to(k.dtype),
+            dvf.to(v.dtype))
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -191,7 +311,8 @@ class Attention(nn.Module):
 
 def attention_block(params: Attention, x: torch.Tensor, cfg: ModelConfig,
                     mode: str, cache: dict | None, pos: int | None, *,
-                    window: int = 0) -> tuple[torch.Tensor, dict | None]:
+                    window: int = 0
+                    ) -> tuple[torch.Tensor, dict | None]:
     """x: (B, S, D). Returns (attn_out, new_cache). With `window` (the
     `local_attn` kind) queries see the last `window` keys, and the cache
     is a rotating window: position p lives in slot p % window. In decode

@@ -15,11 +15,13 @@ attention (S = min(window, S_max) for `local_attn`), `{"state"}`
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
@@ -76,7 +78,9 @@ class Block(nn.Module):
 
 class Transformer(nn.Module):
     """Token embedding, `cfg.num_layers` blocks, final norm, (tied)
-    unembedding. Weights only: the port serves, it does not train yet."""
+    unembedding. Its parameters are frozen (`requires_grad=False`) for
+    serving; `train.init_train_state` and `train.train_state_from_jax`
+    make them trainable."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None,
                  device: str | torch.device = "cuda"):
@@ -119,25 +123,51 @@ class Transformer(nn.Module):
                     yield si, li, bi, self.blocks[i]
                     i += 1
 
-    @torch.inference_mode()
     def forward(self, inputs: torch.Tensor, *, mode: str = "train",
-                cache=None, pos: int | None = None):
-        """inputs: (B, S) token ids. Returns (logits, new_cache, aux)."""
-        cfg = self.cfg
+                cache=None, pos: int | None = None, remat: str = "none"):
+        """inputs: (B, S) token ids. Returns (logits, new_cache, aux).
+
+        Prefill and decode run under `torch.inference_mode()`. Train mode
+        records autograd where the parameters require grad; `remat="block"`
+        then checkpoints each superblock (`torch.utils.checkpoint`, the
+        reference's `jax.checkpoint` of its scan body): the backward keeps
+        only each superblock's input and runs the superblock again,
+        attention forward included."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"mode {mode!r}")
+        if remat not in ("none", "block"):
+            raise ValueError(f"remat {remat!r}; expected 'none' or 'block'")
         if mode == "decode" and (cache is None or pos is None):
             raise ValueError("decode needs a cache and a position")
+        with (contextlib.nullcontext() if mode == "train"
+              else torch.inference_mode()):
+            return self._forward(inputs, mode, cache, pos,
+                                 remat == "block" and mode == "train")
+
+    def _forward(self, inputs, mode, cache, pos, remat: bool):
+        cfg = self.cfg
         x = self.embed[inputs.long()]
         # per segment, per block of the superblock: each layer's new cache
         per_layer: list[list[list[dict]]] = [
             [[] for _ in seg.blocks] for seg in cfg.segments]
-        for si, li, bi, block in self.layers_of():
-            lc = None
-            if cache is not None:
-                lc = {name: t[li] for name, t in cache[si][bi].items()}
-            x, nc = block(x, cfg, mode, lc, pos)
-            per_layer[si][bi].append(nc)
+        i = 0
+        for si, seg in enumerate(cfg.segments):
+            for li in range(seg.count):
+                blocks = self.blocks[i:i + len(seg.blocks)]
+                i += len(seg.blocks)
+                if remat:
+                    # no randomness in a block: no RNG state to replay
+                    x = checkpoint(_superblock, x, blocks, cfg,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+                    continue
+                for bi, block in enumerate(blocks):
+                    lc = None
+                    if cache is not None:
+                        lc = {name: t[li]
+                              for name, t in cache[si][bi].items()}
+                    x, nc = block(x, cfg, mode, lc, pos)
+                    per_layer[si][bi].append(nc)
         x = L.rms_norm(x, self.final_norm, cfg.rms_eps)
         if cfg.tie_embeddings:
             logits = x @ self.embed.t()
@@ -155,10 +185,18 @@ class Transformer(nn.Module):
         return logits, new_cache, aux
 
 
+def _superblock(x, blocks, cfg: ModelConfig):
+    """One superblock in train mode: its blocks in order."""
+    for block in blocks:
+        x, _ = block(x, cfg, "train", None, None)
+    return x
+
+
 def forward(model: Transformer, inputs: torch.Tensor, *,
-            mode: str = "train", cache=None, pos: int | None = None):
+            mode: str = "train", cache=None, pos: int | None = None,
+            remat: str = "none"):
     """inputs: (B, S) token ids. Returns (logits, new_cache, aux_loss)."""
-    return model(inputs, mode=mode, cache=cache, pos=pos)
+    return model(inputs, mode=mode, cache=cache, pos=pos, remat=remat)
 
 
 # ---------------------------------------------------------------------------
@@ -258,6 +296,13 @@ def params_to_tree(model: Transformer) -> dict:
     """The reference's layout: `{"segments": ((block,),) per segment,
     "final_norm", "embed"[, "unembed"]}` with each block leaf stacked over
     the segment's layers. Tensors stay on the model's device."""
+    return tree_of(model, lambda p: p.data)
+
+
+def tree_of(model: Transformer, value) -> dict:
+    """A tree in the reference's parameter layout whose leaf for each
+    parameter `p` of `model` is `value(p)` (a tensor of p's shape),
+    stacked over each segment's layers."""
     cfg = model.cfg
     segments = []
     for si, seg in enumerate(cfg.segments):
@@ -267,25 +312,49 @@ def params_to_tree(model: Transformer) -> dict:
                       if (s, i) == (si, bi)]
             tree: dict[str, Any] = {}
             for path, attr in _block_names(cfg, kind):
-                leaf = torch.stack([_get(b, attr) for b in blocks])
+                leaf = torch.stack([value(_param(b, attr)) for b in blocks])
                 node = tree
                 for key in path[:-1]:
                     node = node.setdefault(key, {})
                 node[path[-1]] = leaf
             trees.append(tree)
         segments.append(tuple(trees))
-    out = {"segments": tuple(segments), "final_norm": model.final_norm.data,
-           "embed": model.embed.data}
+    out = {"segments": tuple(segments), "final_norm": value(model.final_norm),
+           "embed": value(model.embed)}
     if not cfg.tie_embeddings:
-        out["unembed"] = model.unembed.data
+        out["unembed"] = value(model.unembed)
     return out
 
 
-def _get(module: nn.Module, attr: tuple[str, ...]) -> torch.Tensor:
+def _param(module: nn.Module, attr: tuple[str, ...]) -> nn.Parameter:
     obj: Any = module
     for a in attr:
         obj = getattr(obj, a)
-    return obj.data
+    return obj
+
+
+def param_leaves(model: Transformer, tree: dict):
+    """(parameter, its tensor in `tree`, tree path) for every parameter of
+    `model`, `tree` in the reference's layout (`tree_of`): a block leaf's
+    tensor is its layer's slice of the stacked leaf. numpy leaves become
+    CPU tensors (uint16 ones as bf16 bit patterns)."""
+    cfg = model.cfg
+    blocks = {(si, li, bi): b for si, li, bi, b in model.layers_of()}
+    for si, seg in enumerate(cfg.segments):
+        for bi, kind in enumerate(seg.blocks):
+            node = tree["segments"][si][bi]
+            for path, attr in _block_names(cfg, kind):
+                leaf = node
+                for key in path:
+                    leaf = leaf[key]
+                stacked = _as_tensor(leaf)
+                for li in range(seg.count):
+                    yield (_param(blocks[(si, li, bi)], attr), stacked[li],
+                           path)
+    top = ["final_norm", "embed"] + ([] if cfg.tie_embeddings
+                                     else ["unembed"])
+    for name in top:
+        yield getattr(model, name), _as_tensor(tree[name]), (name,)
 
 
 def _as_tensor(leaf) -> torch.Tensor:
@@ -309,23 +378,8 @@ def params_from_jax(cfg: ModelConfig, tree: dict,
     or tensors; each is cast to the parameter's dtype (bf16, or fp32 for
     the rg blocks' `lam`)."""
     model = Transformer(cfg, None, device)
-    blocks = {(si, li, bi): b for si, li, bi, b in model.layers_of()}
-    for si, seg in enumerate(cfg.segments):
-        for bi, kind in enumerate(seg.blocks):
-            node = tree["segments"][si][bi]
-            for path, attr in _block_names(cfg, kind):
-                leaf = node
-                for key in path:
-                    leaf = leaf[key]
-                stacked = _as_tensor(leaf)
-                for li in range(seg.count):
-                    dst = _get(blocks[(si, li, bi)], attr)
-                    _copy(dst, stacked[li], path)
-    _copy(model.final_norm.data, _as_tensor(tree["final_norm"]),
-          ("final_norm",))
-    _copy(model.embed.data, _as_tensor(tree["embed"]), ("embed",))
-    if not cfg.tie_embeddings:
-        _copy(model.unembed.data, _as_tensor(tree["unembed"]), ("unembed",))
+    for param, leaf, path in param_leaves(model, tree):
+        _copy(param.data, leaf, path)
     return model
 
 

@@ -1,0 +1,134 @@
+"""AdamW with fp32 master weights, cosine schedule, global-norm clipping
+(port of `repro.optim.adamw`).
+
+Mixed-precision policy, as in the reference:
+  * model params live in bf16 (what the forward consumes),
+  * the optimizer keeps fp32 master copies and fp32 m / v moments,
+  * the update runs in fp32 and the new params are `master.to(bf16)`,
+    every leaf (the reference casts them all, so an fp32 parameter, the
+    rg blocks' `lam`, is bf16 after the first step in both packages).
+
+The reference builds new trees each step; the port updates the master
+copies, the moments and the model's parameters in place, under
+`torch.no_grad()`, tensor by tensor: a second copy of the optimizer state
+(14 bytes a parameter with the bf16 weights) would not fit beside the
+first at a full-width model's size. Optimizer state is a dict of lists
+aligned with the parameter list it was made from, and a host-side int32
+step (`"step"`), whose schedule values (`cosine_lr`, the bias
+corrections) are computed on the host in fp32, as the reference computes
+them on its device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from collections.abc import Sequence
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+    clip_norm: float = 1.0
+
+
+def cosine_lr(cfg: AdamWConfig, step) -> torch.Tensor:
+    """Linear warmup -> cosine decay to min_lr_ratio * lr. `step` is an
+    int or an integer tensor; the result is an fp32 0-d tensor."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = step / max(cfg.warmup_steps, 1)
+    prog = (step - cfg.warmup_steps) / max(
+        cfg.total_steps - cfg.warmup_steps, 1)
+    prog = torch.clamp(prog, 0.0, 1.0)
+    cos = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * 0.5 * (
+        1 + torch.cos(math.pi * prog))
+    return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum over tensors of their fp32 sums of squares (an fp32
+    0-d tensor on the tensors' device)."""
+    total = None
+    for t in tensors:
+        flat = t.detach().reshape(-1).to(torch.float32)
+        sq = torch.dot(flat, flat)
+        total = sq if total is None else total + sq
+    if total is None:
+        raise ValueError("global_norm of no tensors")
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float
+                        ) -> tuple[Sequence[torch.Tensor], torch.Tensor]:
+    """Scales `grads` in place by min(1, max_norm / norm) and returns them
+    with the norm before clipping. The product is taken in fp32 and cast
+    back to each grad's dtype (bf16 grads are rounded, as in the
+    reference)."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    for g in grads:
+        if g.dtype == torch.float32:
+            g.mul_(scale)
+        else:
+            g.copy_(g.float() * scale)
+    return grads, norm
+
+
+def adamw_init(params: Sequence[torch.Tensor]) -> dict:
+    """{"master": fp32 copies, "m", "v": fp32 zeros, "step": int32 0} for
+    the parameter list `params` (each list in its order)."""
+    params = list(params)
+    return {
+        "master": [p.detach().to(torch.float32, copy=True) for p in params],
+        "m": [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+              for p in params],
+        "v": [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+              for p in params],
+        "step": torch.zeros((), dtype=torch.int32),
+    }
+
+
+@torch.no_grad()
+def adamw_update(grads: Sequence[torch.Tensor], opt_state: dict,
+                 cfg: AdamWConfig, params: Sequence[torch.Tensor]) -> dict:
+    """One AdamW step, in place: clips `grads` (see `clip_by_global_norm`),
+    updates `opt_state` ("master", "m", "v" and "step") and writes
+    `master.to(bf16)` into `params`. Returns the stats {"lr", "grad_norm"}
+    (fp32 0-d tensors)."""
+    step = opt_state["step"] + 1
+    lr = cosine_lr(cfg, step)
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+
+    b1, b2 = cfg.b1, cfg.b2
+    sf = step.to(torch.float32)
+    # fp32 values, exact as Python floats
+    c1 = float(1.0 - b1 ** sf)
+    c2 = float(1.0 - b2 ** sf)
+    lr_f = float(lr)
+
+    masters, ms, vs = opt_state["master"], opt_state["m"], opt_state["v"]
+    params = list(params)
+    if not len(grads) == len(masters) == len(ms) == len(vs) == len(params):
+        raise ValueError("grads, optimizer state and params differ in length")
+    for g, m, v, w, p in zip(grads, ms, vs, masters, params):
+        g = g.to(torch.float32)
+        m.mul_(b1).add_(g, alpha=1 - b1)
+        v.mul_(b2).addcmul_(g, g, value=1 - b2)
+        upd = (m / c1).div_((v / c2).sqrt_().add_(cfg.eps))
+        upd.add_(w, alpha=cfg.weight_decay)
+        w.sub_(upd.mul_(lr_f))
+        if p.dtype == torch.bfloat16:
+            p.copy_(w)
+        else:
+            p.data = w.to(torch.bfloat16)
+    opt_state["step"] = step
+    return {"lr": lr, "grad_norm": gnorm}

@@ -1,13 +1,222 @@
-"""Serving step functions (port of `repro.train.step`'s
-`make_serve_prefill` / `make_serve_decode`):
+"""Step functions of the port (port of `repro.train.step`): training (loss
++ AdamW) and serving (prefill / decode).
 
+  train_step(state, tokens, labels)       -> (state, metrics)
   serve_prefill(model, tokens)            -> (logits_last, cache)
   serve_decode(model, token, cache, pos)  -> (logits, cache)
+
+Training, as in the reference:
+  * **Microbatching**: with `accum` > 1 the batch is split into `accum`
+    microbatches whose bf16 grads are accumulated in fp32 and scaled by
+    1 / accum; with `accum` == 1 the bf16 grads go to the optimizer as
+    they are.
+  * **Remat**: `remat="block"` checkpoints each superblock; flash
+    attention keeps its own blockwise backward either way.
+  * **Loss**: token-mean cross-entropy of fp32 log-softmax. The
+    reference adds aux_weight x the MoE aux loss; the port has no MoE
+    block yet (ROADMAP A9), so its aux is 0 and the weight comes with
+    that block.
+
+The state is updated in place (the model's bf16 parameters, the fp32
+optimizer state, the host-side int32 steps); `train_state_to_tree` and
+`train_state_from_jax` carry it to and from the reference's layout, the
+tree a checkpoint holds.
 """
 from __future__ import annotations
 
+import dataclasses
+
+import torch
+
+from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import forward
+from repro_torch.models.model import (Transformer, forward, init_params,
+                                      param_leaves, params_from_jax,
+                                      tree_of)
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    accum: int = 1                  # gradient-accumulation microbatches
+    remat: str = "none"             # "none" | "block"
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (bf16 parameters, trainable), the optimizer state
+    {"master", "m", "v": fp32 lists aligned with `params`, "step"} and the
+    step, an int32 0-d host tensor."""
+    model: Transformer
+    opt: dict
+    step: torch.Tensor
+
+    @property
+    def params(self) -> list[torch.nn.Parameter]:
+        return list(self.model.parameters())
+
+
+def init_train_state(cfg: ModelConfig,
+                     generator: torch.Generator | None = None,
+                     device: str | torch.device = "cuda") -> TrainState:
+    """A fresh state: `init_params(cfg, generator, device)`, made
+    trainable, with `adamw_init` of its parameters."""
+    model = init_params(cfg, generator, device)
+    model.requires_grad_(True)
+    return TrainState(model=model, opt=adamw_init(model.parameters()),
+                      step=torch.zeros((), dtype=torch.int32))
+
+
+class _TokenNLL(torch.autograd.Function):
+    """Token-mean NLL of fp32 log-softmax(logits): the reference's
+    `log_softmax(logits.astype(f32))` picked at the labels and averaged,
+    with its gradient (softmax - onehot) / N in the logits' dtype. Saves
+    the bf16 logits and the fp32 log-sum-exp, so one fp32 copy of the
+    logits lives at a time (two inside `logsumexp`), not the three that
+    autograd through `log_softmax` keeps."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        lf = logits.to(torch.float32)
+        lse = torch.logsumexp(lf, dim=-1)
+        picked = lf.gather(-1, labels[:, None])[:, 0]
+        del lf
+        ctx.save_for_backward(logits, labels, lse)
+        return (lse - picked).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, lse = ctx.saved_tensors
+        grad = logits.to(torch.float32, copy=True).sub_(lse[:, None]).exp_()
+        rows = torch.arange(grad.shape[0], device=grad.device)
+        grad[rows, labels] -= 1.0
+        grad.mul_(g / grad.shape[0])
+        return grad.to(logits.dtype), None
+
+
+def loss_fn(model: Transformer, tokens: torch.Tensor, labels: torch.Tensor,
+            tcfg: TrainConfig = TrainConfig()):
+    """-> (loss, (nll, aux)): the loss is the token-mean NLL of the fp32
+    log-softmax of the train-mode logits; aux, the forward's MoE aux
+    loss, is 0 without an MoE block."""
+    logits, _, aux = forward(model, tokens, mode="train", remat=tcfg.remat)
+    nll = _TokenNLL.apply(logits.reshape(-1, logits.shape[-1]),
+                          labels.reshape(-1).long())
+    return nll, (nll, aux)
+
+
+def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
+                    tcfg: TrainConfig = TrainConfig()):
+    """Returns train_step(state, tokens, labels) -> (state, metrics).
+
+    tokens / labels: (B, S) int tensors or numpy arrays (moved to the
+    model's device). With tcfg.accum > 1, B must be divisible by accum.
+    The state is updated in place and returned; metrics are fp32 0-d
+    tensors: loss, nll, aux, lr and grad_norm (before clipping)."""
+
+    def grads_of(state: TrainState, tokens, labels):
+        for p in state.params:
+            p.grad = None
+        loss, (nll, aux) = loss_fn(state.model, tokens, labels, tcfg)
+        loss.backward()
+        grads = [p.grad for p in state.params]
+        for p in state.params:
+            p.grad = None
+        return loss.detach(), nll.detach(), aux.detach(), grads
+
+    def train_step(state: TrainState, tokens, labels):
+        dev = state.model.embed.device
+        tokens = torch.as_tensor(tokens, device=dev)
+        labels = torch.as_tensor(labels, device=dev)
+        if tcfg.accum == 1:
+            loss, nll, aux, grads = grads_of(state, tokens, labels)
+        else:
+            B = tokens.shape[0]
+            if B % tcfg.accum:
+                raise ValueError(f"batch {B} is not divisible by accum "
+                                 f"{tcfg.accum}")
+            mb = B // tcfg.accum
+            grads = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
+                     for p in state.params]
+            loss = nll = aux = torch.zeros((), dtype=torch.float32,
+                                           device=dev)
+            for i in range(tcfg.accum):
+                rows = slice(i * mb, (i + 1) * mb)
+                l_i, n_i, a_i, g_i = grads_of(state, tokens[rows],
+                                              labels[rows])
+                with torch.no_grad():
+                    for acc, g in zip(grads, g_i):
+                        acc += g.to(torch.float32)
+                del g_i
+                loss, nll, aux = loss + l_i, nll + n_i, aux + a_i
+            inv = 1.0 / tcfg.accum
+            with torch.no_grad():
+                for g in grads:
+                    g.mul_(inv)
+            loss, nll, aux = loss * inv, nll * inv, aux * inv
+        stats = adamw_update(grads, state.opt, ocfg, state.params)
+        del grads
+        state.step = state.step + 1
+        return state, {"loss": loss, "nll": nll, "aux": aux, **stats}
+
+    return train_step
+
+
+def train_state_to_tree(state: TrainState) -> tuple:
+    """The reference's `TrainState` as a tree: (params, {"m", "master",
+    "step", "v"}, step), which the checkpoint serializer flattens to the
+    reference's paths (`0/...`, `1/m/...`, `1/master/...`, `1/step`,
+    `1/v/...`, `2`). A snapshot: no leaf aliases the live state, which the
+    next step updates in place. Leaves stay on their devices."""
+    model = state.model
+    index = {id(p): i for i, p in enumerate(state.params)}
+
+    def snapshot(value):
+        tree = tree_of(model, value)
+        return {k: (v if k == "segments" else v.clone())
+                for k, v in tree.items()}
+    params = snapshot(lambda p: p.data)
+    opt = {name: snapshot(lambda p, lst=state.opt[name]: lst[index[id(p)]])
+           for name in ("m", "master", "v")}
+    opt["step"] = state.opt["step"].clone()
+    return params, opt, state.step.clone()
+
+
+def train_state_from_jax(cfg: ModelConfig, tree,
+                         device: str | torch.device = "cuda") -> TrainState:
+    """A `TrainState` on `device` from a tree in the reference's layout:
+    the reference's `TrainState` as numpy (its three children), a tree
+    that `train_state_to_tree` made, or one a `CheckpointManager` restored
+    from either package. A parameter whose leaf is bf16 is bf16 (the rg
+    blocks' `lam` is fp32 at init and bf16 after a step, in both
+    packages)."""
+    device = resolve_device(device)
+    params_tree, opt_tree, step = tree
+    model = params_from_jax(cfg, params_tree, device)
+    for param, leaf, _ in param_leaves(model, params_tree):
+        if leaf.dtype == torch.bfloat16 and param.dtype != torch.bfloat16:
+            param.data = param.data.to(torch.bfloat16)
+    model.requires_grad_(True)
+    params = list(model.parameters())
+    opt: dict = {}
+    for name in ("master", "m", "v"):
+        found = {id(p): (t, path) for p, t, path in
+                 param_leaves(model, opt_tree[name])}
+        opt[name] = []
+        for p in params:
+            t, path = found[id(p)]
+            if tuple(t.shape) != tuple(p.shape) or t.dtype != torch.float32:
+                raise ValueError(f"{name}/{'/'.join(path)}: "
+                                 f"{tuple(t.shape)} {t.dtype}, want "
+                                 f"{tuple(p.shape)} float32")
+            opt[name].append(t.to(device=device, copy=True))
+    opt["step"] = _int32(opt_tree["step"])
+    return TrainState(model=model, opt=opt, step=_int32(step))
+
+
+def _int32(leaf) -> torch.Tensor:
+    """A 0-d int32 host tensor from a step leaf (numpy or tensor)."""
+    return torch.tensor(int(leaf), dtype=torch.int32)
 
 
 def make_serve_prefill(cfg: ModelConfig):

@@ -13,8 +13,10 @@ from repro_torch.configs import get_config
 from repro_torch.core import make_unilrc
 from repro_torch.io import TorchBackend, resolve_backend
 from repro_torch.launch import serve
+from repro_torch.launch import train as train_cli
 from repro_torch.models import init_cache, init_params, layers
 from repro_torch.topo import Topology
+from repro_torch.train import init_train_state
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
@@ -33,6 +35,11 @@ SLICE_MODULES = [
     "repro_torch.sim.repair", "repro_torch.sim.montecarlo",
     "repro_torch.analysis.certificate", "repro_torch.analysis.model",
     "repro_torch.analysis.verify", "repro_torch.analysis.schedcheck",
+    "repro_torch.data", "repro_torch.data.pipeline", "repro_torch.optim",
+    "repro_torch.optim.adamw", "repro_torch.optim.compress",
+    "repro_torch.train", "repro_torch.train.step",
+    "repro_torch.launch.train", "repro_torch.configs.phi4_mini_38b",
+    "repro_torch.configs.qwen15_32b",
 ]
 
 _PROBE = r"""
@@ -58,7 +65,7 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, rest = out.stdout.split(" ", 1)
-    assert int(count) >= 42
+    assert int(count) >= 50
     assert rest.strip() == "[] []"
 
 
@@ -105,3 +112,18 @@ def test_layers_default_to_cuda():
         layers.Attention(cfg)
     assert layers.SwiGLU(8, 16, device="cpu").w_gate.device.type == "cpu"
     assert layers.Attention(cfg, device="cpu").wq.device.type == "cpu"
+
+
+def test_training_defaults_to_cuda_and_never_falls_back():
+    """Nothing trains on the CPU unless asked: the CLI and the state's
+    constructor raise without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    cfg = get_config("llama3.2-3b", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_train_state(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.run(["--smoke", "--steps", "1"])
+    state = init_train_state(cfg, device="cpu")
+    assert state.model.embed.device.type == "cpu"
+    assert all(p.requires_grad for p in state.params)

@@ -12,7 +12,8 @@ when this test was written: 0.0124 (train) and 0.0100 (decode) of max
 recurrentgemma SMOKE (rg, rg, local_attn, rg, rg; window 8) 0.0320 and
 0.0153, and 0.0196 and 0.0133 at head dim 256, which takes the flash
 kernel's wrapper (its plain version on the CPU), as the reference hands
-it its Pallas kernel on a TPU.
+it its Pallas kernel on a TPU. phi4-mini SMOKE has llama SMOKE's shapes
+(0.0124 and 0.0100); qwen1.5 SMOKE, with its qkv bias, 0.0101 and 0.0112.
 """
 import dataclasses
 
@@ -57,6 +58,8 @@ def _configs(pad: int, arch: str = "llama3.2-3b", **changes):
 PAIRS = {
     "smoke": (0, "llama3.2-3b", {}),
     "ghost_heads": (4, "llama3.2-3b", {}),
+    "phi4_mini_smoke": (0, "phi4-mini-3.8b", {}),
+    "qwen15_smoke": (0, "qwen1.5-32b", {}),               # qkv bias
     "recurrentgemma_smoke": (0, "recurrentgemma-9b", {}),
     "recurrentgemma_head_dim_256": (0, "recurrentgemma-9b",
                                     {"name": "recurrentgemma-hd256",
@@ -198,6 +201,11 @@ FULL_WIDTH = [
     # the 26 rg blocks' `lam` leaves (5,504 each) are fp32
     ("recurrentgemma-9b", 10_549_127_680, 21_098_541_568, (16, 1),
      10_549_123_584),
+    ("phi4-mini-3.8b", 4_037_348_352, 8_074_696_704, (32, 8),
+     3_836_018_688),
+    # 40 q and 40 kv heads padded to 48 each: 73 GB of bf16 leaves
+    ("qwen1.5-32b", 36_539_470_848, 73_078_941_696, (48, 48),
+     35_196_108_800),
 ]
 
 
@@ -224,7 +232,8 @@ def test_full_width_leaf_shapes_match_reference(arch, physical, nbytes,
         assert physical == counted + cfg.d_model
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "recurrentgemma-9b",
+                                  "phi4-mini-3.8b", "qwen1.5-32b"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_are_the_reference_configs(smoke, arch):
     want = ref_get_config(arch, smoke=smoke)
@@ -235,7 +244,8 @@ def test_configs_are_the_reference_configs(smoke, arch):
 
 def test_unported_archs_raise_naming_the_roadmap():
     assert len(all_archs()) == 10
-    assert set(PORTED) == {"llama3.2-3b", "recurrentgemma-9b"}
+    assert set(PORTED) == {"llama3.2-3b", "recurrentgemma-9b",
+                           "phi4-mini-3.8b", "qwen1.5-32b"}
     for arch in all_archs():
         if arch in PORTED:
             continue
