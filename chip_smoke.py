@@ -9,7 +9,10 @@ Drives the port's main path on one CUDA card and checks every byte:
      nvcc into `build/repro_torch/` at first use;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the main path's shapes and its edges (byte equality for the coding
-     kernels; 2e-2 in bf16 and 2e-5 / 1e-4 in fp32 for attention, at head
+     kernels, whose launch plan `kernels.autotune.matmul_plan` must equal
+     the one the kernel's host code makes, `repro_gf_plan`: threads, grid,
+     shared memory, K passes, N width; 2e-2 in bf16 and 2e-5 / 1e-4 in
+     fp32 for attention, at head
      dims 64, 128 and 256: recurrentgemma's windowed MQA prefill and the
      64-key tile's edges; fp32, on the tensor cores as 3xTF32, at the
      llama and recurrentgemma prefill shapes, d = 64 and a small GQA
@@ -97,11 +100,35 @@ Drives the port's main path on one CUDA card and checks every byte:
  12. the training entry point `repro_torch.launch.train.run` at its SMOKE
      config (head dim 16: blockwise attention, no flash launch), the
      verify recipe's checkpoint and node-loss drill;
+ 11d. phase 11b's witness for MLA: minicpm3-4b at full width cut to 2
+     layers, three steps on the card and on the CPU from one state, the
+     same bounds but m's, 3e-2 (`WITNESS_M_BOUND`); MLA attends
+     blockwise on both;
+ 13. minicpm3-4b, the server's default arch, at full width (62 MLA
+     layers, 4.40 B parameters, 8.79 GB) through phase 6's path: saved as
+     47 stripes in windows of 8, one node lost, restored degraded byte
+     for byte with zero cross-cluster bytes, rebuilt, 8 requests of 2048
+     + 32 tokens in batches of 4; every prefill attention layer blockwise
+     (MLA's absorbed head dims, 288 / 256, take no kernel: 124 blockwise
+     calls, no flash launch); decode against the latent cache checked
+     against prefill;
+ 14. phi3.5-moe at full width cut to 4 of its 32 layers (the 32-layer
+     model's 83.7 GB do not fit the card): 5.46 B parameters, 10.93 GB
+     with the fp32 routers, 58 stripes, the same drill and traffic; the
+     MoE FFN (top 2 of 16 experts, capacity 1.25) beside attention
+     through the flash kernel at head dim 128 (8 launches); decode
+     against prefill in fp32 and, per sequence, on the bf16 weights at
+     full-row capacity, a sequence exempt only where its routing
+     switched at a near tie (`routing_switches`);
+     then the example programs on the card: `examples/serving_torch.py`
+     and `examples/train_with_failures_torch.py` at their defaults, each
+     to its own OK line;
   5. a JSON line of per-kernel numbers (five rows: gf, xor, flash d=128,
      flash d=256, and the fp32 flash kernel at d = 64, 128 and 256, which
      no serve path runs; gf, xor and flash d=128 count their launches per
-     path, the simulator's and training's included), the card line, and
-     the result line `{"ok": true, "device": {...}}` last.
+     path, the simulator's, training's, phases 13 and 14's and the
+     training example's included), the card line, and the result line
+     `{"ok": true, "device": {...}}` last.
 
 Any failed check exits non-zero before the result line. Without a CUDA
 device, or without the repo's `src/repro_torch` beside it, it exits 1.
@@ -110,6 +137,7 @@ Run from the root of the repo:  python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import contextlib
 import faulthandler
 import gc
 import json
@@ -687,11 +715,15 @@ def frontend_path(codec, metas, payload, updated: dict, seed: int) -> dict:
 
 # the served models: physical parameters (every leaf), checkpoint stripes of
 # 180-of-210 at 1 MiB blocks, stripes per encode window (None: the
-# manager's default of 64), and the traffic: requests of prompt + gen
-# tokens, `batch` at a time
+# manager's default of 64), the traffic: requests of prompt + gen tokens,
+# `batch` at a time, and the prefill attention's route: every attention
+# layer of each prefill batch launches the flash kernel ("kernel") or
+# attends blockwise ("blockwise"); `layers` cuts the depth, `reduced`
+# says why
 SERVE_CELLS = {
     "llama3.2-3b": dict(params=3_388_910_592, stripes=36, window=None,
-                        batch=4, requests=8, prompt=2048, gen=32),
+                        batch=4, requests=8, prompt=2048, gen=32,
+                        attention="kernel"),
     # 21,098,541,568 bytes (the 26 rg blocks' `lam` leaves are fp32) in
     # 112 stripes. Windows of 8 stripes: PyTorch's pinned host cache
     # rounds each of the encode double buffer's four buffers up to a power
@@ -701,18 +733,116 @@ SERVE_CELLS = {
     # 31 x 128 prompt tokens (tile-aligned, as the reference's Pallas
     # route wants) past the 2,048-token window, and decode past it too.
     "recurrentgemma-9b": dict(params=10_549_127_680, stripes=112, window=8,
-                              batch=2, requests=4, prompt=3968, gen=32),
+                              batch=2, requests=4, prompt=3968, gen=32,
+                              attention="kernel"),
+    # phase 13: minicpm3-4b, the server's default arch, nothing cut: 62
+    # MLA layers, 40 heads padded to 48, 8,791,979,008 bytes in 47
+    # stripes, windows of 8 as phase 9's; MLA attends on the absorbed
+    # latent (q, k 288 wide, v 256, one kv head), off the kernel's head
+    # dims: blockwise, as the reference routes it to jnp. The llama
+    # cell's traffic
+    "minicpm3-4b": dict(params=4_395_989_504, stripes=47, window=8,
+                        batch=4, requests=8, prompt=2048, gen=32,
+                        attention="blockwise"),
+    # phase 14: phi3.5-moe at full width (d_model 4096, 32 q / 8 kv heads
+    # at head dim 128: the bf16 flash kernel; 16 experts of d_ff 6400,
+    # top 2, fp32 router), 10,928,332,800 bytes in 58 stripes; the llama
+    # cell's traffic
+    "phi3.5-moe-42b-a6.6b": dict(
+        params=5_463_904_256, stripes=58, window=8, batch=4, requests=8,
+        prompt=2048, gen=32, attention="kernel", layers=4,
+        reduced="depth 4 of 32 layers: the 32-layer model is 83.7 GB of "
+                "weights, more than the card's 80 GB"),
 }
+
+
+@contextlib.contextmanager
+def routing_probe():
+    """Records every `models.layers.moe_ffn` call made in the context:
+    the router's fp32 logits z (B, S, E), computed as `moe_ffn` computes
+    them, the top-K expert sets it picks, sorted (B, S, K), the bf16
+    input x and the router. Yields the records' list, in call order."""
+    import torch
+
+    from repro_torch.models import layers
+    inner, calls = layers.moe_ffn, []
+
+    def probe(params, x, cfg):
+        z = x.float() @ params.router.float()
+        _, idx = layers.top_k(torch.softmax(z, dim=-1),
+                              cfg.moe.num_experts_per_tok)
+        calls.append(dict(z=z, sets=idx.sort(dim=-1).values, x=x,
+                          router=params.router))
+        return inner(params, x, cfg)
+
+    layers.moe_ffn = probe
+    try:
+        yield calls
+    finally:
+        layers.moe_ffn = inner
+
+
+def routing_switches(calls: list, L: int, P: int, B: int) -> list:
+    """The tokens whose experts differ between the two paths of the
+    decode check, from `routing_probe`'s records of its three forwards
+    (the prefill of P tokens, path A; the prefill of P - 1 and the decode
+    step, path B; L MoE layers each). Only root switches are listed: a
+    switch at (layer l, token t) with none at a lower layer and a token
+    <= t, so not a consequence of another. For each: the sequence, layer
+    and token, the gap z_o - z_n of path A's router logits between the
+    dropped expert o it ranked lowest and the added expert n it ranked
+    highest, and the most that moving each element of the bf16 router
+    input x by one ulp (2^-8 of |x_k|) can move that gap,
+    2^-8 x sum_k |x_k| |w_ko - w_kn|. `near_tie` is gap <= that bound:
+    a switch the inputs' rounding explains."""
+    import torch
+
+    check(len(calls) == 3 * L, f"{len(calls)} moe_ffn calls, want {3 * L}")
+    check(all(c["z"].shape[:2] == (B, P) for c in calls[:L]) and
+          all(c["z"].shape[:2] == (B, P - 1) for c in calls[L:2 * L]) and
+          all(c["z"].shape[:2] == (B, 1) for c in calls[2 * L:]),
+          "moe_ffn calls out of the expected order")
+    first = torch.full((B,), P, device=calls[0]["z"].device)
+    tpos = torch.arange(P, device=first.device)
+    out = []
+    for layer in range(L):
+        a = calls[layer]
+        sa = a["sets"]
+        sb = torch.cat([calls[L + layer]["sets"],
+                        calls[2 * L + layer]["sets"]], dim=1)
+        sw = (sa != sb).any(-1)                                    # (B, P)
+        roots = sw & (tpos[None] < first[:, None])
+        for b, t in roots.nonzero().tolist():
+            z = a["z"][b, t]
+            lost = set(sa[b, t].tolist()) - set(sb[b, t].tolist())
+            new = set(sb[b, t].tolist()) - set(sa[b, t].tolist())
+            o = min(lost, key=lambda e: z[e].item())
+            n = max(new, key=lambda e: z[e].item())
+            w = a["router"].float()
+            bound = (a["x"][b, t].float().abs()
+                     * (w[:, o] - w[:, n]).abs()).sum().item() * 2.0 ** -8
+            gap = (z[o] - z[n]).item()
+            out.append(dict(seq=b, layer=layer, token=t, gap=round(gap, 6),
+                            bound=round(bound, 6), near_tie=gap <= bound))
+        first = torch.minimum(first, torch.where(sw, tpos[None], P).amin(1))
+    return out
 
 
 def serve_path(seed: int, arch: str, tag: str = "") -> dict:
     """The serving path of one full-width model (`SERVE_CELLS[arch]`,
-    random weights from `seed`): checkpointed as UniLRC 180-of-210 stripes,
-    restored degraded after a node loss, rebuilt and served. Checks every
-    restored byte, the restore's locality, the flash launches (one per
-    attention layer of each prefill batch) and the logits; exits on the
-    first failed check. Phase lines are named with `tag` in front. Returns
-    the flash kernel's launches and plain calls on the serve run."""
+    random weights from `seed`, cut in depth where the cell says):
+    checkpointed as UniLRC 180-of-210 stripes, restored degraded after a
+    node loss, rebuilt and served. Checks every restored byte, the
+    restore's locality, the attention route (per attention layer of each
+    prefill batch, one flash launch or one blockwise call) and the
+    logits; exits on the first failed check. Phase lines are named with
+    `tag` in front. Returns the flash kernel's launches, plain calls and
+    blockwise calls on the serve run, and the coding kernels' launches of
+    the save, the restore and the rebuild (`gf_bitmatmul`,
+    `xor_reduce`)."""
+    import copy
+    import dataclasses
+
     import torch
 
     from repro_torch.ckpt import BlockStore, CheckpointManager
@@ -723,7 +853,7 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
     from repro_torch.kernels import gf_bitmatmul as gfk
     from repro_torch.kernels import xor_reduce as xrk
     from repro_torch.launch.serve import serve
-    from repro_torch.models import (forward, init_params, layers,
+    from repro_torch.models import (Segment, forward, init_params, layers,
                                     pad_cache_to, params_from_jax,
                                     params_to_tree)
     from repro_torch.topo import Topology
@@ -731,6 +861,12 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
     cell = SERVE_CELLS[arch]
     dev = torch.device("cuda")
     cfg = get_config(arch)
+    if "layers" in cell:
+        (seg,) = cfg.segments
+        cfg = dataclasses.replace(
+            cfg, name=f"{cfg.name}-{cell['layers']}l",
+            segments=(Segment(seg.blocks, cell["layers"]),))
+        phase(f"{tag}serve reduced", arch=arch, reduced=repr(cell["reduced"]))
     attn_layers = sum(seg.count * sum(kind != "rg" for kind in seg.blocks)
                       for seg in cfg.segments)
     gen = torch.Generator(device=dev)
@@ -770,6 +906,7 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
     check(nstripes == cell["stripes"], f"{nstripes} stripes")
     check(gfk.launches == math.ceil(nstripes / mgr.codec.max_batch_stripes),
           f"{gfk.launches} encode launches for {nstripes} stripes")
+    coding = {"gf_bitmatmul": gfk.launches, "xor_reduce": xrk.launches}
     check(sum(m.nbytes for m in mgr.stripes_of(0)) == ckpt_bytes,
           "checkpoint bytes")
 
@@ -790,6 +927,8 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
           gf_launches=gfk.launches, xor_launches=xrk.launches)
     check(report.degraded_blocks > 0, "restore was not degraded")
     check(report.cross_cluster_bytes == 0, "restore crossed clusters")
+    coding["gf_bitmatmul"] += gfk.launches
+    coding["xor_reduce"] += xrk.launches
 
     # 6.3 every restored tensor is the saved tensor, byte for byte
     nleaves = 0
@@ -805,8 +944,14 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
     phase(f"{tag}ckpt bytes", leaves=nleaves, dtypes=",".join(sorted(dtypes)),
           identical=True)
     del tree
+    gfk.reset_counts()
+    xrk.reset_counts()
     rebuilt = mgr.reconstruct_failures()
     check(not store.failed_nodes and rebuilt > 0, f"rebuilt {rebuilt}")
+    coding["gf_bitmatmul"] += gfk.launches
+    coding["xor_reduce"] += xrk.launches
+    phase(f"{tag}ckpt rebuild", blocks=rebuilt, gf_launches=gfk.launches,
+          xor_launches=xrk.launches, coding_launches=json.dumps(coding))
     model = params_from_jax(cfg, restored, dev)
     del restored, mgr, store
     gc.collect()
@@ -830,12 +975,15 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
           decode_ms_per_token=",".join(f"{t * 1e3 / (G - 1):.3f}"
                                        for t in out["decode_s"]),
           flash=json.dumps(flash))
-    check(flash["launches"] == nbatches * attn_layers,
-          f"flash launches {flash['launches']} != "
-          f"{nbatches} x {attn_layers}")
+    want = nbatches * attn_layers
+    routed = ((want, 0) if cell["attention"] == "kernel" else (0, want))
+    check((flash["launches"], flash["blockwise_calls"]) == routed,
+          f"(flash launches, blockwise calls) "
+          f"{(flash['launches'], flash['blockwise_calls'])} != {routed}: "
+          f"{nbatches} batches x {attn_layers} attention layers, "
+          f"{cell['attention']}")
     check(flash["fp32_launches"] == 0, "fp32 flash kernel on the serve path")
     check(flash["plain_calls"] == 0, "flash plain version on the serve path")
-    check(flash["blockwise_calls"] == 0, "blockwise attention on the serve path")
     for toks in out["tokens"]:
         check(tuple(toks.shape) == (B, G), f"tokens {tuple(toks.shape)}")
         check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
@@ -847,20 +995,87 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
     rng.manual_seed(seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=rng,
                             device=dev)
-    full, _, _ = forward(model, prompts, mode="prefill")
-    want = full[:, -1].float()
-    del full
-    _, cache, _ = forward(model, prompts[:, :P - 1], mode="prefill")
     NSTEP = 4
-    cache = pad_cache_to(cache, cfg, P + 2 * NSTEP)
-    step, _, _ = forward(model, prompts[:, P - 1:], mode="decode",
-                         cache=cache, pos=P - 1)
-    got = step[:, 0].float()
-    finite = bool(torch.isfinite(want).all() and torch.isfinite(got).all())
-    scale = want.abs().max().item()
-    rel = (got - want).abs().max().item() / scale
+
+    def decode_vs_prefill(m):
+        """-> (max |decode - prefill| / max |logit|, max |logit|, finite,
+        decode logits, cache, the same share per sequence)."""
+        full, _, _ = forward(m, prompts, mode="prefill")
+        want = full[:, -1].float()
+        del full
+        _, cache, _ = forward(m, prompts[:, :P - 1], mode="prefill")
+        cache = pad_cache_to(cache, cfg, P + 2 * NSTEP)
+        step, _, _ = forward(m, prompts[:, P - 1:], mode="decode",
+                             cache=cache, pos=P - 1)
+        got = step[:, 0].float()
+        finite = bool(torch.isfinite(want).all() and
+                      torch.isfinite(got).all())
+        scale = want.abs().max().item()
+        per_seq = ((got - want).abs().amax(-1)
+                   / want.abs().amax(-1)).tolist()
+        return ((got - want).abs().max().item() / scale, scale, finite,
+                step, cache, per_seq)
+
+    moe = {}
+    if cfg.moe is None:
+        rel, scale, finite, step, cache, _ = decode_vs_prefill(model)
+    else:
+        # Decode equals prefill only where both route every token alike.
+        # (a) A prefill of P tokens drops the tokens over an expert's
+        # capacity (C slots a row) and a decode step drops none, so where
+        # the last token or an earlier one is dropped the two differ by
+        # design, in the reference too; the check runs the same weights
+        # with the capacity at the row (C = P), as the reference's kimi-k2
+        # SMOKE config sets its capacity factor for its decode-vs-train
+        # check. (b) Routing is discontinuous: in bf16 the two paths'
+        # roundings switch the expert of a token whose router
+        # probabilities nearly tie (on the H100: the last token of one
+        # of the 4 sequences, 2nd and 3rd probability 0.15498 and 0.15192
+        # in the prefill, reversed in the decode step). So the check runs
+        # twice: in fp32, as the tests compare MoE models, and on the
+        # served bf16 weights, each sequence on its own, where a sequence
+        # is exempt only if a token's experts switched between the two
+        # paths at a gap the rounding of the router's bf16 input can
+        # close (`routing_switches`). The served model's difference, with
+        # its drops, is printed.
+        dropless = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts
+            / cfg.moe.num_experts_per_tok))
+        check(layers.moe_capacity(dropless.moe, P) == P, "not dropless")
+        rel_served, _, _, step, cache, _ = decode_vs_prefill(model)
+        model.cfg = dropless
+        try:
+            with routing_probe() as calls:
+                _, _, bf16_finite, _, _, per_seq = decode_vs_prefill(model)
+        finally:
+            model.cfg = cfg
+        switches = routing_switches(calls, cfg.num_layers, P, B)
+        del calls
+        exempt = sorted({sw["seq"] for sw in switches if sw["near_tie"]}
+                        - {sw["seq"] for sw in switches
+                           if not sw["near_tie"]})
+        held = [b for b in range(B) if b not in exempt]
+        phase(f"{tag}serve bf16 check", capacity=P,
+              decode_vs_prefill=json.dumps([round(r, 5) for r in per_seq]),
+              bound=0.05, held=json.dumps(held), exempt=json.dumps(exempt),
+              switches=json.dumps(switches))
+        check(bf16_finite, "non-finite bf16 logits")
+        check(2 * len(held) >= B, f"{len(exempt)} of {B} sequences exempt")
+        for b in held:
+            check(per_seq[b] < 0.05, f"bf16 decode vs prefill, sequence "
+                  f"{b}: {per_seq[b]:.4f} of its max |logit|")
+        exact = copy.deepcopy(model).float()
+        exact.cfg = dropless
+        rel, scale, finite, _, _, _ = decode_vs_prefill(exact)
+        del exact
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe = dict(checked="fp32, capacity at the row",
+                   capacity_served=layers.moe_capacity(cfg.moe, P),
+                   capacity_checked=P,
+                   bf16_served=f"{rel_served:.5f}")
     phase(f"{tag}serve check", max_abs_logit=f"{scale:.4f}",
-          decode_vs_prefill=f"{rel:.5f}", bound=0.05, finite=finite)
+          decode_vs_prefill=f"{rel:.5f}", bound=0.05, finite=finite, **moe)
     check(finite, "non-finite logits")
     check(rel < 0.05, f"decode vs prefill {rel:.4f} of max |logit|")
 
@@ -924,11 +1139,12 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
     prefill_ms = p0.elapsed_time(p1)
     flash_ms = sum(a.elapsed_time(b) for a, b in events)
     phase(f"{tag}prefill split", prefill_ms=f"{prefill_ms:.3f}",
+          attention=cell["attention"],
           flash_ms=f"{flash_ms:.3f}", flash_calls=len(events),
           flash_share=f"{flash_ms / prefill_ms:.4f}",
           peak_host_rss_GB=f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9:.3f}",
           peak_device_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
-    return flash
+    return {**flash, **coding}
 
 
 # phase 10's settings, from benchmarks/fig_sim_reliability.py: the chain
@@ -1580,22 +1796,34 @@ def train_low_lr(seed: int) -> None:
     torch.cuda.empty_cache()
 
 
-# phase 11's witness: phase 11's train step at llama3.2-3b's full width
-# (vocab 128,256, 24 -> 32 heads with ghosts, accum 2, remat, the same
+# phase 11's witness: phase 11's train step at a model's full width
+# (llama3.2-3b: vocab 128,256, 24 -> 32 heads with ghosts; minicpm3-4b,
+# phase 11d: MLA, 40 -> 48 heads, vocab 73,448; accum 2, remat, the same
 # optimizer settings) on the card and on the CPU, whose arithmetic the CPU
 # tests hold to the reference's; cut to 2 layers and 2 x 256 tokens a
 # step so that a CPU step takes seconds
 WITNESS = dict(layers=2, batch=2, seq=256, steps=3)
+# The first step's m, card against CPU, as a share of each leaf's max |m|.
+# The bounds are set from `tools/witness_drift.py` on the H100 (seeds
+# 2505, 1, 2), which also takes the step in fp32 on the CPU: llama's worst
+# leaf reads 0.93-1.23e-2 card vs CPU. MLA's q path (q_norm, w_dq, w_uq,
+# w_uk) reads 1.89-2.10e-2, and there both devices miss the fp32 step by
+# more than they miss each other (card 2.7-3.2e-2, CPU 2.4-3.0e-2): the
+# bf16 rounding both share, not the card, so 2e-2 holds no room for MLA.
+WITNESS_M_BOUND = {"llama3.2-3b": 2e-2, "minicpm3-4b": 3e-2}
 
 
-def train_witness(seed: int) -> None:
-    """Phase 11b: the same initial state, from `seed` on the CPU, and the
-    same batches on the card and on the CPU for WITNESS["steps"] steps of
-    phase 11's settings. Checks each step's loss and grad norm within 2e-2
-    relative, the first step's gradient leaf by leaf (the first moment m,
-    (1 - b1) x the clipped gradient, within 2e-2 of each leaf's max |m|),
-    and that the card's attention went through the flash kernel. Exits on
-    a miss."""
+def train_witness(seed: int, arch: str = "llama3.2-3b",
+                  tag: str = "") -> None:
+    """Phase 11b (llama3.2-3b) and 11d (minicpm3-4b, `tag` "mla "): the
+    same initial state, from `seed` on the CPU, and the same batches on
+    the card and on the CPU for WITNESS["steps"] steps of phase 11's
+    settings. Checks each step's loss and grad norm within 2e-2 relative,
+    the first step's gradient leaf by leaf (the first moment m, (1 - b1) x
+    the clipped gradient, within `WITNESS_M_BOUND[arch]` of each leaf's
+    max |m|: 2e-2 for llama, 3e-2 for MLA), and the
+    attention's route on the card: through the flash kernel at llama's
+    head dim, blockwise at MLA's (on the CPU too). Exits on a miss."""
     import dataclasses
 
     import torch
@@ -1603,24 +1831,25 @@ def train_witness(seed: int) -> None:
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticTokenDataset
     from repro_torch.kernels import flash_attention as fak
-    from repro_torch.models import layers, uniform_segments
+    from repro_torch.models import Segment, layers
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import (TrainConfig, init_train_state,
                                    make_train_step, train_state_from_jax,
                                    train_state_to_tree)
 
     dev = torch.device("cuda")
-    full = get_config("llama3.2-3b")
-    cfg = dataclasses.replace(full, name=f"llama3.2-3b-{WITNESS['layers']}l",
-                              segments=uniform_segments("attn",
-                                                        WITNESS["layers"]))
+    full = get_config(arch)
+    (seg,) = full.segments
+    cfg = dataclasses.replace(full, name=f"{arch}-{WITNESS['layers']}l",
+                              segments=(Segment(seg.blocks,
+                                                WITNESS["layers"]),))
     t0 = time.perf_counter()
     host = init_train_state(cfg, torch.Generator().manual_seed(seed), "cpu")
     card = train_state_from_jax(cfg, train_state_to_tree(host), dev)
     names = [n for n, _ in host.model.named_parameters()]
-    phase("train witness init", arch=cfg.name, params=cfg.param_count(),
-          q_heads=cfg.num_heads_padded, vocab=cfg.vocab_size,
-          seconds=f"{time.perf_counter() - t0:.2f}")
+    phase(f"{tag}train witness init", arch=cfg.name,
+          params=cfg.param_count(), q_heads=cfg.num_heads_padded,
+          vocab=cfg.vocab_size, seconds=f"{time.perf_counter() - t0:.2f}")
     B, S = WITNESS["batch"], WITNESS["seq"]
     ds = SyntheticTokenDataset(DataConfig(cfg.vocab_size, S, B, seed=0))
     step = make_train_step(
@@ -1629,6 +1858,9 @@ def train_witness(seed: int) -> None:
                          clip_norm=TRAIN["clip_norm"]),
         TrainConfig(accum=TRAIN["accum"], remat=TRAIN["remat"]))
     per_step = WITNESS["layers"] * TRAIN["accum"] * 2
+    m_bound = WITNESS_M_BOUND[arch]
+    kernel = cfg.mla is None            # MLA's 288 / 256 go blockwise
+    want_counts = (per_step, 0, 0) if kernel else (0, 0, per_step)
     losses: dict[str, list[float]] = {"card": [], "cpu": []}
     for i in range(WITNESS["steps"]):
         tokens, labels = ds.batch(i)
@@ -1637,14 +1869,19 @@ def train_witness(seed: int) -> None:
         card, got = step(card, tokens, labels)
         torch.cuda.synchronize()
         counts = (fak.launches, fak.plain_calls, layers.blockwise_calls)
+        layers.reset_blockwise_calls()
         t0 = time.perf_counter()
         host, want = step(host, tokens, labels)
         cpu_s = time.perf_counter() - t0
+        if not kernel:
+            check(layers.blockwise_calls == per_step,
+                  f"witness step {i}: {layers.blockwise_calls} blockwise "
+                  f"calls on the CPU, want {per_step}")
         rel = {k: abs(float(got[k]) - float(want[k])) / abs(float(want[k]))
                for k in ("loss", "grad_norm")}
         losses["card"].append(float(got["loss"]))
         losses["cpu"].append(float(want["loss"]))
-        phase("train witness step", step=i,
+        phase(f"{tag}train witness step", step=i,
               loss_card=f"{float(got['loss']):.6f}",
               loss_cpu=f"{float(want['loss']):.6f}",
               grad_norm_card=f"{float(got['grad_norm']):.4f}",
@@ -1653,9 +1890,9 @@ def train_witness(seed: int) -> None:
               rel_grad_norm=f"{rel['grad_norm']:.3e}", bound=2e-2,
               cpu_step_s=f"{cpu_s:.2f}", flash_launches=counts[0],
               plain=counts[1], blockwise=counts[2])
-        check(counts == (per_step, 0, 0),
+        check(counts == want_counts,
               f"witness step {i}: (flash, plain, blockwise) = {counts}, "
-              f"want ({per_step}, 0, 0)")
+              f"want {want_counts}")
         check(math.isfinite(losses["card"][-1]),
               f"witness step {i}: loss {losses['card'][-1]}")
         for k, r in rel.items():
@@ -1666,15 +1903,15 @@ def train_witness(seed: int) -> None:
             for name, a, b in zip(names, host.opt["m"], card.opt["m"]):
                 scale = a.abs().max().item()
                 err = (b.cpu() - a).abs().max().item()
-                check(err <= 2e-2 * scale,
+                check(err <= m_bound * scale,
                       f"witness step 0: m of {name} off by {err} "
                       f"(max |m| {scale})")
                 if scale and err / scale > worst[0]:
                     worst = (err / scale, name)
-            phase("train witness grads", leaves=len(names),
+            phase(f"{tag}train witness grads", leaves=len(names),
                   max_rel_err=f"{worst[0]:.3e}", worst_leaf=worst[1],
-                  bound=2e-2)
-    phase("train witness", steps=WITNESS["steps"],
+                  bound=m_bound)
+    phase(f"{tag}train witness", steps=WITNESS["steps"],
           losses=json.dumps({k: [round(x, 6) for x in v]
                              for k, v in losses.items()}))
     del host, card
@@ -1706,6 +1943,56 @@ def train_cli_phase() -> None:
     check(fak.launches == 0 and fak.plain_calls == 0,
           "flash kernel or plain version at head dim 16")
     check(layers.blockwise_calls == 30 * 2, "blockwise attention calls")
+
+
+def examples_phase() -> dict:
+    """The example programs on the card, as a user runs them:
+    `examples/serving_torch.py` at its defaults (minicpm3-4b SMOKE: the
+    weight registry restored degraded with a node down, the front-end's
+    traffic and scrub, prefill and decode) and
+    `examples/train_with_failures_torch.py` at its defaults (300 steps of
+    a 100M-parameter llama clone at head dim 64, the flash kernel's d = 64
+    instantiation; checkpoints, a node lost, a degraded restore, its own
+    assertion that the loss falls by 0.3). Their output is kept and its
+    last lines printed. Returns the training run's flash launches. Exits
+    on a miss: an example's own assertion raises."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.models import layers
+
+    counts = {}
+    for name, ok in (("serving_torch", "serving OK"),
+                     ("train_with_failures_torch",
+                      "train-with-failures OK")):
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        fak.reset_counts()
+        layers.reset_blockwise_calls()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = mod.main([])
+        seconds = time.perf_counter() - t0
+        lines = out.getvalue().strip().splitlines()
+        counts[name] = {"launches": fak.launches,
+                        "fp32_launches": fak.fp32_launches,
+                        "plain_calls": fak.plain_calls,
+                        "blockwise_calls": layers.blockwise_calls}
+        phase(f"example {name}", seconds=f"{seconds:.2f}",
+              flash=json.dumps(counts[name]), last=json.dumps(lines[-3:]))
+        check(lines[-1] == ok, f"{name}: last line {lines[-1]!r}")
+        check(counts[name]["plain_calls"] == 0, f"{name}: a plain version")
+        if name.startswith("train"):
+            # no remat: one forward a step, 12 attention layers at d = 64
+            check(counts[name]["launches"] == 12 * len(result) and
+                  counts[name]["blockwise_calls"] == 0,
+                  f"{name}: {counts[name]} for {len(result)} steps")
+    return counts["train_with_failures_torch"]
 
 
 def leaves(node):
@@ -1777,11 +2064,13 @@ def main() -> None:
     from repro_torch.core import decode_plan_cached, make_unilrc
     from repro_torch.core.gf import gf_bit_columns
     from repro_torch.io import TorchBackend
+    from repro_torch.kernels import autotune
     from repro_torch.kernels import flash_attention as fak
     from repro_torch.kernels import gf_bitmatmul as gfk
     from repro_torch.kernels import xor_reduce as xrk
 
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev)
     gen.manual_seed(2505)
 
@@ -1807,11 +2096,21 @@ def main() -> None:
         torch.cuda.synchronize()
         err = int((got.int() - want.int()).abs().max())
         check(err == 0, f"gf_bitmatmul != plain at S={S} m={m} k={k} B={B}")
+        # the launch the host code plans (C2): autotune.matmul_plan must
+        # describe it, field by field
+        plan = gfk.host_plan(S, m, k, B)
+        tile = autotune.matmul_plan(k, m, B, S=S, sms=sms)
+        check((plan["threads"], plan["grid"], plan["smem"], plan["k_passes"],
+               plan["N"]) == (tile.threads, tile.grid_steps, tile.smem_bytes,
+                              tile.passes, tile.n_width),
+              f"matmul_plan {tile} != the kernel's plan {plan}")
         ms = time_ms(lambda: gfk.gf_bitmatmul(cols, data), reps)
         pms = time_ms(lambda: gfk.gf_bitmatmul_plain(cols, data), plain_reps)
         b, by = bound_ms(gfk.bound_bytes(S, m, k, B),
                          gfk.bound_ops(S, m, k, B))
         phase("kernel gf_bitmatmul", S=S, m=m, k=k, B=B, offset=offset,
+              threads=plan["threads"], grid=plan["grid"], smem=plan["smem"],
+              k_passes=plan["k_passes"],
               max_abs_err=err, ms=f"{ms:.4f}", plain_ms=f"{pms:.3f}",
               bound_ms=f"{b:.4f}", bound_by=by, bound_share=f"{b / ms:.4f}",
               pass_bytes=gfk.pass_bytes(S, m, k, B),
@@ -2059,10 +2358,44 @@ def main() -> None:
     # 12. the training entry point at its SMOKE config (head dim 16) --------
     train_cli_phase()
 
+    # 11d. the MLA train witness: minicpm3-4b's full width, 2 layers -------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_witness(2505, "minicpm3-4b", tag="mla ")
+    phase("mla train witness phase", seconds=f"{time.perf_counter() - t0:.2f}",
+          vmrss_GB=f"{vmrss_gb():.3f}")
+
+    # 13. minicpm3-4b at full width: MLA, the server's default arch ---------
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mla_path = serve_path(2505, "minicpm3-4b", tag="mla ")
+    phase("mla phase", seconds=f"{time.perf_counter() - t0:.2f}",
+          vmrss_GB=f"{vmrss_gb():.3f}")
+
+    # 14. phi3.5-moe at full width, 4 of 32 layers: MoE, flash at d = 128 ---
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    moe_path = serve_path(2505, "phi3.5-moe-42b-a6.6b", tag="moe ")
+    phase("moe phase", seconds=f"{time.perf_counter() - t0:.2f}",
+          vmrss_GB=f"{vmrss_gb():.3f}")
+
+    # the example programs -----------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    example = examples_phase()
+
     # 5. results ----------------------------------------------------------------
     fp32_launches = {"serve": flash["fp32_launches"],
                      "serve_smoke": smoke_counts["fp32_launches"],
-                     "serve_recurrentgemma": flash_rg_path["fp32_launches"]}
+                     "serve_recurrentgemma": flash_rg_path["fp32_launches"],
+                     "serve_minicpm3": mla_path["fp32_launches"],
+                     "serve_phi35moe": moe_path["fp32_launches"],
+                     "example_train": example["fp32_launches"]}
     kernels = [
         dict(name="gf_bitmatmul", kernel="gf_matmul_sm90_kernel",
              route="cuda", source="src/repro_torch/csrc/gf_matmul_sm90.cu",
@@ -2071,7 +2404,9 @@ def main() -> None:
              launches_by_path={"stripe": launches["gf_bitmatmul"],
                                "frontend": frontend["gf_bitmatmul"],
                                "sim": sim["gf_bitmatmul"],
-                               "train": train["gf_bitmatmul"]},
+                               "train": train["gf_bitmatmul"],
+                               "serve_minicpm3": mla_path["gf_bitmatmul"],
+                               "serve_phi35moe": moe_path["gf_bitmatmul"]},
              library_ms=None, **gf_main),
         dict(name="xor_reduce", kernel="xor_fold_kernel", route="cuda",
              source="src/repro_torch/csrc/coding_kernels.cu",
@@ -2080,7 +2415,9 @@ def main() -> None:
              launches_by_path={"stripe": launches["xor_reduce"],
                                "frontend": frontend["xor_reduce"],
                                "sim": sim["xor_reduce"],
-                               "train": train["xor_reduce"]},
+                               "train": train["xor_reduce"],
+                               "serve_minicpm3": mla_path["xor_reduce"],
+                               "serve_phi35moe": moe_path["xor_reduce"]},
              library_ms=None, **xor_main),
         dict(name="flash_attention", kernel="flash_fwd_sm90_kernel",
              route="cuda", source="src/repro_torch/csrc/flash_fwd_sm90.cu",
@@ -2088,7 +2425,13 @@ def main() -> None:
              launches=flash["launches"] - flash["fp32_launches"],
              launches_by_path={"serve": flash["launches"]
                                - flash["fp32_launches"],
-                               "train": train["flash_attention"]},
+                               "train": train["flash_attention"],
+                               "serve_phi35moe": moe_path["launches"]
+                               - moe_path["fp32_launches"],
+                               "serve_minicpm3": mla_path["launches"]
+                               - mla_path["fp32_launches"],
+                               "example_train": example["launches"]
+                               - example["fp32_launches"]},
              **flash_main, **flash_grad),
         dict(name="flash_attention_d256", kernel="flash_fwd_sm90_kernel<256>",
              route="cuda", source="src/repro_torch/csrc/flash_fwd_sm90.cu",
@@ -2106,8 +2449,7 @@ def main() -> None:
         dict(name="flash_attention_fp32", kernel="flash_fwd_f32_sm90_kernel",
              route="cuda", source="src/repro_torch/csrc/flash_fwd_f32_sm90.cu",
              replaces="src/repro/kernels/flash_attention.py:116",
-             launches=fp32_launches["serve"] + fp32_launches["serve_smoke"]
-             + fp32_launches["serve_recurrentgemma"],
+             launches=sum(fp32_launches.values()),
              launches_by_path=fp32_launches,
              **{**next(iter(flash_fp32.values())),
                 "max_abs_err": max(r["max_abs_err"]

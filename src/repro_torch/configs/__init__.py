@@ -24,14 +24,14 @@ ARCHS = {
 
 #: Architectures the port can build, and what the others wait for.
 PORTED = ("llama3.2-3b", "phi4-mini-3.8b", "qwen1.5-32b",
-          "recurrentgemma-9b")
+          "recurrentgemma-9b", "minicpm3-4b", "phi3.5-moe-42b-a6.6b",
+          "kimi-k2-1t-a32b")
 _PENDING = {
-    "kimi-k2-1t-a32b": "its MoE attention blocks (`attn_moe`)",
-    "phi3.5-moe-42b-a6.6b": "its MoE attention blocks (`attn_moe`)",
-    "minicpm3-4b": "its MLA blocks (`mla`)",
-    "rwkv6-7b": "its RWKV6 blocks (`rwkv`)",
-    "llama-3.2-vision-11b": "its cross-attention blocks (`cross_attn`)",
-    "hubert-xlarge": "an encoder-only front end with embedding-free inputs",
+    "rwkv6-7b": "its RWKV6 blocks (`rwkv`, ROADMAP A9.3)",
+    "llama-3.2-vision-11b": "its cross-attention blocks (`cross_attn`, "
+                            "ROADMAP A9.4)",
+    "hubert-xlarge": "an encoder-only front end with embedding-free inputs "
+                     "(ROADMAP A9.5)",
 }
 
 # Paper Table 2 code schemes (used by the EC checkpoint layer)
@@ -43,8 +43,7 @@ def get_config(arch: str, smoke: bool = False):
         raise KeyError(f"unknown arch {arch!r}; expected one of {list(ARCHS)}")
     if arch not in PORTED:
         raise NotImplementedError(
-            f"{arch} is not ported yet: it needs {_PENDING[arch]} "
-            f"(ROADMAP A9)")
+            f"{arch} is not ported yet: it needs {_PENDING[arch]}")
     mod = importlib.import_module(f".{ARCHS[arch]}", __package__)
     return mod.SMOKE if smoke else mod.CONFIG
 

@@ -579,6 +579,43 @@ int launch(const CUtensorMap& tm, const uint8_t* cols, uint8_t* out,
 
 constexpr int round1024(int64_t x) { return int((x + 1023) & ~int64_t(1023)); }
 
+// The launch plan of an (m, k) product over S stripes of B bytes: the
+// tiling (N width, N tiles, K passes) and the dynamic shared memory.
+// Returns false for a shape the kernel does not take.
+bool make_plan(long long S, long long m, long long k, long long B, Plan* p,
+               int* width, size_t* smem_bytes) {
+  if (S <= 0 || m <= 0 || k <= 0 || B <= 0 || m > (1 << 24) ||
+      k > (1 << 24) || S * ((B + kTile - 1) / kTile) > 0x7fffffffLL)
+    return false;
+  *p = Plan{};
+  p->B = B;
+  p->tps = int((B + kTile - 1) / kTile);
+  p->tiles = int(S * p->tps);
+  p->m = int(m);
+  p->k = int(k);
+  p->ksteps = int((k + 3) / 4);
+  // N tiles of at most kMaxN / 8 output rows, all of one width
+  const int nnt = int((m + kMaxN / 8 - 1) / (kMaxN / 8));
+  p->rows_nt = int((m + nnt - 1) / nnt);
+  p->nnt = int((m + p->rows_nt - 1) / p->rows_nt);
+  int N = 0;
+  for (int i = 4; i >= 0; --i)
+    if (8 * p->rows_nt <= kWidths[i]) N = kWidths[i];
+  // as few K passes as fit
+  size_t smem = 0;
+  for (p->npk = (p->ksteps + kMaxSteps - 1) / kMaxSteps;; ++p->npk) {
+    p->spp = (p->ksteps + p->npk - 1) / p->npk;
+    p->bits_bytes = round1024(int64_t(p->spp) * N * 32);
+    p->stage_bytes = round1024(4 * p->spp * kTile);
+    smem = 1024 + size_t(p->bits_bytes) + size_t(kStages) * p->stage_bytes +
+           kBarBytes;
+    if (smem <= size_t(kSmemLimit)) break;
+  }
+  *width = N;
+  *smem_bytes = smem;
+  return true;
+}
+
 }  // namespace
 
 // cols (m, k, 8), data (S, k, B) with rows of pitch B rounded up to 16
@@ -586,35 +623,13 @@ constexpr int round1024(int64_t x) { return int((x + 1023) & ~int64_t(1023)); }
 extern "C" int repro_gf_matmul(const void* cols, const void* data, void* out,
                                long long S, long long m, long long k,
                                long long B, void* stream) {
-  if (S <= 0 || m <= 0 || k <= 0 || B <= 0 || m > (1 << 24) ||
-      k > (1 << 24) || S * ((B + kTile - 1) / kTile) > 0x7fffffffLL ||
+  Plan p;
+  int N = 0;
+  size_t smem = 0;
+  if (!make_plan(S, m, k, B, &p, &N, &smem) ||
       (reinterpret_cast<uintptr_t>(data) & 15) ||
       (reinterpret_cast<uintptr_t>(cols) & 7))
     return int(cudaErrorInvalidValue);
-  Plan p{};
-  p.B = B;
-  p.tps = int((B + kTile - 1) / kTile);
-  p.tiles = int(S * p.tps);
-  p.m = int(m);
-  p.k = int(k);
-  p.ksteps = int((k + 3) / 4);
-  // N tiles of at most kMaxN / 8 output rows, all of one width
-  const int nnt = int((m + kMaxN / 8 - 1) / (kMaxN / 8));
-  p.rows_nt = int((m + nnt - 1) / nnt);
-  p.nnt = int((m + p.rows_nt - 1) / p.rows_nt);
-  int N = 0;
-  for (int i = 4; i >= 0; --i)
-    if (8 * p.rows_nt <= kWidths[i]) N = kWidths[i];
-  // as few K passes as fit
-  size_t smem = 0;
-  for (p.npk = (p.ksteps + kMaxSteps - 1) / kMaxSteps;; ++p.npk) {
-    p.spp = (p.ksteps + p.npk - 1) / p.npk;
-    p.bits_bytes = round1024(int64_t(p.spp) * N * 32);
-    p.stage_bytes = round1024(4 * p.spp * kTile);
-    smem = 1024 + size_t(p.bits_bytes) + size_t(kStages) * p.stage_bytes +
-           kBarBytes;
-    if (smem <= size_t(kSmemLimit)) break;
-  }
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return int(cudaErrorNotSupported);
   CUtensorMap tm;
@@ -630,4 +645,31 @@ extern "C" int repro_gf_matmul(const void* cols, const void* data, void* out,
     case 176: return launch<176>(tm, c, o, p, smem, st);
     default: return launch<240>(tm, c, o, p, smem, st);
   }
+}
+
+// What `repro_gf_matmul` would launch for the same shape on the current
+// device, without launching: out[0..7] = threads, grid (CTAs), dynamic
+// shared memory bytes, N width, N tiles, K passes, steps per K pass,
+// output rows per N tile.
+extern "C" int repro_gf_plan(long long S, long long m, long long k,
+                             long long B, long long* out) {
+  Plan p;
+  int N = 0;
+  size_t smem = 0;
+  if (!make_plan(S, m, k, B, &p, &N, &smem))
+    return int(cudaErrorInvalidValue);
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return int(err);
+  out[0] = kThreads;
+  out[1] = p.tiles < sms ? p.tiles : sms;
+  out[2] = (long long)smem;
+  out[3] = N;
+  out[4] = p.nnt;
+  out[5] = p.npk;
+  out[6] = p.spp;
+  out[7] = p.rows_nt;
+  return 0;
 }

@@ -99,6 +99,9 @@ def _load(path: str) -> ctypes.CDLL:
     lib.repro_xor_fold.restype = ctypes.c_int
     lib.repro_gf_matmul.argtypes = [p, p, p, i64, i64, i64, i64, p]
     lib.repro_gf_matmul.restype = ctypes.c_int
+    lib.repro_gf_plan.argtypes = [i64, i64, i64, i64,
+                                  ctypes.POINTER(ctypes.c_longlong)]
+    lib.repro_gf_plan.restype = ctypes.c_int
     for fn in (lib.repro_flash_fwd_f32, lib.repro_flash_fwd_bf16):
         fn.argtypes = [p, p, p, p, p, i64, i64, i64, i64, i64, i64,
                        ctypes.c_int, i64, ctypes.c_float, p]

@@ -2,27 +2,32 @@
 
 What the port keeps of `repro.kernels.autotune`:
 
-  * `TilePlan` — one launch decision along the byte dimension. The CUDA
-    kernels fix their own configuration for now (16 bytes a thread,
-    256 threads a block, a grid-stride loop over at most 1024 blocks
-    along B, 16 output rows a block for the GF matmul); `matmul_plan` and
-    `xor_plan` report it in this form.
+  * `TilePlan` — one launch decision, as the kernel's host code makes it.
+    `matmul_plan` describes `gf_matmul_sm90_kernel`
+    (`csrc/gf_matmul_sm90.cu`): 384 threads (a producer and two consumer
+    warpgroups), a persistent grid of min(tiles, SMs) CTAs walking
+    128-byte tiles of each stripe, the output in N tiles of at most 30
+    rows at one instantiated width, the contraction in as few K passes as
+    fit the bit matrix and a 3-stage data ring in 232,448 B of shared
+    memory. `kernel_plan` is that tiling alone; its constants mirror the
+    C++ ones, each beside the line it copies, and a card test holds both
+    to the host's own plan (`repro_gf_plan`). `xor_plan` describes
+    `xor_fold_kernel` (`csrc/coding_kernels.cu`): 256 threads, 16 bytes a
+    thread, a grid-stride loop over at most 1024 blocks.
   * `plan_stream_windows` — the stripe window of the streamed write,
     which plans host memory only.
   * the measured-timings cache's JSON format,
 
         {"version": 1,
          "entries": {"gfmm:k=180:m=30:B=1048576":
-                         {"block_b": 4096, "seconds": 0.00213}, ...}}
+                         {"block_b": 128, "seconds": 0.00356}, ...}}
 
     read from the file named by `REPRO_TORCH_AUTOTUNE_CACHE` (its own
     variable: the reference's entries are TPU tiles). Nothing reads the
-    entries yet; measured tuning of the CUDA launch shape comes with the
-    work that makes the kernels fast.
+    entries yet; measured tuning of the launch shape is ROADMAP A5.
 
-The TPU VMEM budget model is gone: Hopper's limit is the 227 KB of
-shared memory a block may use, and the GF kernel's coefficient stage
-(k * 16 * 8 bytes, 23,040 B at k = 180) stays far below it.
+The TPU VMEM budget model is gone: Hopper's limit is the shared memory a
+block may use, which the K passes are sized to.
 """
 from __future__ import annotations
 
@@ -31,45 +36,91 @@ import json
 import os
 import pathlib
 
-THREADS = 256                    # threads per block (csrc kThreads)
-BYTES_PER_THREAD = 16            # one 16-byte vector per thread
-ROWS_PER_BLOCK = 16              # GF output rows per block (kRowsPerBlock)
-MAX_GRID_X = 1024                # blocks along B; a grid-stride loop covers the rest
 CACHE_ENV = "REPRO_TORCH_AUTOTUNE_CACHE"
 _TIMINGS_VERSION = 1
+
+# xor_fold_kernel (csrc/coding_kernels.cu)
+THREADS = 256                    # kThreads, coding_kernels.cu:25
+BYTES_PER_THREAD = 16            # one 16-byte vector per thread
+MAX_GRID_X = 1024                # kMaxGridX, coding_kernels.cu:26
+
+# gf_matmul_sm90_kernel (csrc/gf_matmul_sm90.cu)
+GF_TILE = 128                    # kTile, gf_matmul_sm90.cu:91
+GF_THREADS = 384                 # kThreads, :92
+STAGES = 3                       # kStages, :93
+MAX_STEPS = 64                   # kMaxSteps, :94 (32-column steps a pass)
+SMEM_LIMIT = 232_448             # kSmemLimit, :95
+BAR_BYTES = 64                   # kBarBytes, :96
+WIDTHS = (32, 64, 128, 176, 240)  # kWidths, :98 (N = 8 x output rows)
+H100_SMS = 132                   # SMs of the H100 SXM: the default grid cap
 
 
 @dataclasses.dataclass(frozen=True)
 class TilePlan:
     """One launch decision along the byte dimension.
 
-    `block_b` is the bytes one block covers per grid-stride step,
-    `padded` the bytes the launch spans (the kernels mask the ragged
-    tail, so `pad` is always 0), `grid_steps` the blocks along B, and
-    `smem_bytes` the dynamic shared memory of one block."""
+    `block_b` is the bytes one block covers per step (a GF tile, or a
+    grid-stride step of the XOR kernel), `padded` the bytes the launch
+    spans (the kernels mask the ragged tail, so `pad` is always 0),
+    `grid_steps` the blocks launched (the GF kernel's persistent grid),
+    `smem_bytes` the dynamic shared memory of one block and `threads` its
+    threads. For the GF kernel, `passes` is its K passes and `n_width`
+    its instantiated N (1 and 0 for the XOR kernel)."""
     block_b: int
     padded: int
     pad: int
     grid_steps: int
     smem_bytes: int
+    threads: int
+    passes: int = 1
+    n_width: int = 0
     source: str = "fixed"
 
 
-def _grid_x(B: int) -> int:
-    chunks = -(-max(B, 1) // BYTES_PER_THREAD)
-    return min(MAX_GRID_X, -(-chunks // THREADS))
+def _round1024(x: int) -> int:
+    return -(-x // 1024) * 1024
 
 
-def matmul_plan(k: int, m: int, B: int) -> TilePlan:
-    """Launch shape of `gf_bitmatmul` for an (m, k) matrix over B bytes."""
-    return TilePlan(block_b=THREADS * BYTES_PER_THREAD, padded=B, pad=0,
-                    grid_steps=_grid_x(B), smem_bytes=k * ROWS_PER_BLOCK * 8)
+def kernel_plan(m: int, k: int) -> dict:
+    """How `gf_matmul_sm90_kernel` cuts an (m, k) product, as the host's
+    `make_plan` (gf_matmul_sm90.cu:585) works it out: 32 bit columns (4
+    data rows) a step, N tiles of at most 30 output rows at the narrowest
+    instantiated width that holds them, and as few K passes as fit the
+    bit matrix of a pass and the data ring in `SMEM_LIMIT`."""
+    ksteps = -(-k // 4)
+    nnt = -(-m // (WIDTHS[-1] // 8))
+    rows = -(-m // nnt)
+    nnt = -(-m // rows)
+    N = next(n for n in WIDTHS if 8 * rows <= n)
+    npk = -(-ksteps // MAX_STEPS)
+    while True:
+        spp = -(-ksteps // npk)
+        smem = 1024 + _round1024(spp * N * 32) + STAGES * _round1024(
+            4 * spp * GF_TILE) + BAR_BYTES
+        if smem <= SMEM_LIMIT:
+            return dict(N=N, n_tiles=nnt, rows_per_tile=rows, k_passes=npk,
+                        steps_per_pass=spp, smem=smem)
+        npk += 1
+
+
+def matmul_plan(k: int, m: int, B: int, *, S: int = 1,
+                sms: int = H100_SMS) -> TilePlan:
+    """Launch shape of `gf_bitmatmul` for an (m, k) matrix over S stripes
+    of B bytes on a card with `sms` SMs."""
+    plan = kernel_plan(m, k)
+    tiles = S * -(-B // GF_TILE)
+    return TilePlan(block_b=GF_TILE, padded=B, pad=0,
+                    grid_steps=min(tiles, sms), smem_bytes=plan["smem"],
+                    threads=GF_THREADS, passes=plan["k_passes"],
+                    n_width=plan["N"])
 
 
 def xor_plan(s: int, B: int) -> TilePlan:
     """Launch shape of `xor_reduce` for s sources over B bytes."""
+    chunks = -(-max(B, 1) // BYTES_PER_THREAD)
     return TilePlan(block_b=THREADS * BYTES_PER_THREAD, padded=B, pad=0,
-                    grid_steps=_grid_x(B), smem_bytes=0)
+                    grid_steps=min(MAX_GRID_X, -(-chunks // THREADS)),
+                    smem_bytes=0, threads=THREADS)
 
 
 def plan_stream_windows(k: int, n: int, block_size: int, *,

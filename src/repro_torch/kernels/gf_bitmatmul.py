@@ -14,7 +14,8 @@ bit matrix its shared-memory operand, written by the kernel from `cols`
 (`cols[i, j, b] = A[i, j] * 2^b`, `core.gf.gf_bit_columns`: row 8i+o,
 column 8j+b of `A_bits` is bit o of that byte). Where the bit matrix does
 not fit in shared memory the contraction runs in passes over the same
-byte tiles, each XORing its parity into the output (`kernel_plan`).
+byte tiles, each XORing its parity into the output
+(`autotune.kernel_plan`, re-exported here).
 
 The kernel reads data rows through 16-byte strides from a 16-byte-aligned
 base. A tensor whose width B is not a multiple of 16, or whose base is not
@@ -27,11 +28,13 @@ in `launches`), a CPU tensor takes `gf_bitmatmul_plain` (counted in
 """
 from __future__ import annotations
 
+import ctypes
 import threading
 
 import torch
 
 from . import _build
+from .autotune import SMEM_LIMIT, kernel_plan  # noqa: F401
 
 launches = 0        # CUDA kernel launches
 plain_calls = 0     # plain-PyTorch evaluations (CPU tensors)
@@ -70,40 +73,6 @@ def bound_ops(S: int, m: int, k: int, B: int) -> int:
     return 2 * (8 * m) * (8 * k) * B * S
 
 
-# The CUDA kernel's tiling, as `repro_gf_matmul` in csrc/gf_matmul_sm90.cu
-# works it out (keep the two in step).
-WIDTHS = (32, 64, 128, 176, 240)    # instantiated N = 8 x output rows
-MAX_STEPS = 64                      # 32-column steps per pass (256 rows)
-SMEM_LIMIT = 232_448                # dynamic shared memory of one block
-STAGES = 3                          # data ring of 128-position tiles
-BAR_BYTES = 64                      # the ring's mbarriers
-
-
-def _round1024(x: int) -> int:
-    return -(-x // 1024) * 1024
-
-
-def kernel_plan(m: int, k: int) -> dict:
-    """How the kernel cuts an (m, k) product: the N width, the N tiles (at
-    most 30 output rows each) and the K passes (32 bit columns a step, as
-    many steps a pass as the bit matrix and the data stages fit in shared
-    memory)."""
-    ksteps = -(-k // 4)
-    nnt = -(-m // (WIDTHS[-1] // 8))
-    rows = -(-m // nnt)
-    nnt = -(-m // rows)
-    N = next(n for n in WIDTHS if 8 * rows <= n)
-    npk = -(-ksteps // MAX_STEPS)
-    while True:
-        spp = -(-ksteps // npk)
-        smem = 1024 + _round1024(spp * N * 32) + STAGES * _round1024(
-            4 * spp * 128) + BAR_BYTES
-        if smem <= SMEM_LIMIT:
-            return dict(N=N, n_tiles=nnt, rows_per_tile=rows, k_passes=npk,
-                        steps_per_pass=spp, smem=smem)
-        npk += 1
-
-
 def pass_bytes(S: int, m: int, k: int, B: int) -> int:
     """Bytes the kernel moves beyond `bound_bytes`: every K pass after the
     first reads and rewrites the output, every N tile after the first
@@ -111,6 +80,20 @@ def pass_bytes(S: int, m: int, k: int, B: int) -> int:
     plan = kernel_plan(m, k)
     return (2 * S * m * B * (plan["k_passes"] - 1)
             + S * k * B * (plan["n_tiles"] - 1))
+
+
+_PLAN_FIELDS = ("threads", "grid", "smem", "N", "n_tiles", "k_passes",
+                "steps_per_pass", "rows_per_tile")
+
+
+def host_plan(S: int, m: int, k: int, B: int) -> dict:
+    """The plan `repro_gf_matmul` would launch on the current CUDA device
+    for this shape, from the host code itself (`repro_gf_plan`), without
+    launching: threads, grid, dynamic shared memory and the tiling of
+    `kernel_plan`."""
+    out = (ctypes.c_longlong * len(_PLAN_FIELDS))()
+    _build.check(_build.library().repro_gf_plan(S, m, k, B, out), "gf_plan")
+    return dict(zip(_PLAN_FIELDS, out))
 
 
 def _check(cols: torch.Tensor, data: torch.Tensor) -> None:

@@ -6,9 +6,9 @@ or a checkpoint restored through `ckpt.CheckpointManager`); `run` is the
 command line. Requests are served in batches: each batch is one prefill of
 its prompts and `gen - 1` decode steps against the padded cache.
 
-Usage (`--arch` llama3.2-3b or recurrentgemma-9b; `run` serves the SMOKE
-config, as the reference's server does):
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
+Usage (`--arch` any of `configs.PORTED`, minicpm3-4b by default; `run`
+serves the SMOKE config, as the reference's server does):
+  PYTHONPATH=src python -m repro_torch.launch.serve [--arch minicpm3-4b] \\
       --requests 8 --prompt-len 64 --gen 32 [--device cpu]
 """
 from __future__ import annotations

@@ -3,9 +3,9 @@
 Plain data, carried over unchanged so that a configuration means the same
 model in both packages. A model is a sequence of *segments*; each segment
 is `count` copies of one superblock of block kinds. The port runs the
-`attn`, `local_attn` and `rg` kinds so far; the other kinds are listed so
-that every reference configuration can be described (ROADMAP A9 brings
-their layers).
+`attn`, `local_attn`, `mla`, `attn_moe` and `rg` kinds so far; the other
+kinds are listed so that every reference configuration can be described
+(ROADMAP A9 brings their layers).
 """
 from __future__ import annotations
 

@@ -2,8 +2,11 @@
 
 The `attn` and `local_attn` block kinds: RMSNorm, rotary embeddings, GQA
 self-attention with ghost-head padding (windowed, with a rotating window
-cache, for `local_attn`), SwiGLU; and the `rg` kind's Griffin recurrent
-block (RG-LRU). Activations are bf16, statistics (norms, softmax, the
+cache, for `local_attn`), SwiGLU; the `mla` kind's multi-head latent
+attention (absorbed form, latent cache); the `attn_moe` kind's MoE FFN
+(token-choice top-k routing with per-row expert capacity, a Switch
+load-balance loss); and the `rg` kind's Griffin recurrent block (RG-LRU).
+Activations are bf16, statistics (norms, softmax, the router, the
 recurrence) accumulate in fp32, as in the reference. Weights keep the
 reference's layout (`x @ W`, W of shape (in, out)) so that a parameter
 tree means the same bytes in both packages.
@@ -12,17 +15,18 @@ Attention in train and prefill mode routes by shape, as the reference's
 `_flash_fn` does: head dims the flash kernel is built for
 (`kernels.flash_attention.HEAD_DIMS`) and those that are multiples of 128
 go through its wrapper (the hand-written CUDA kernel on the card, its
-plain version on the CPU); every other head dim takes the kernel's plain
-blockwise forward, the counterpart of the reference's jnp
-`_flash_fwd_impl`, on either device. Where autograd records the call,
-the backward is `flash_attention_bwd`, the reference's blockwise jnp
-`_flash_bwd_impl` in PyTorch (the reference has no Pallas backward).
-Decode attends one token against the cache with plain tensor ops, as
-the reference does with einsums.
+plain version on the CPU); every other head dim (MLA's 288 / 256
+included) takes the kernel's plain blockwise forward, the counterpart of
+the reference's jnp `_flash_fwd_impl`, on either device. Where autograd
+records the call, the backward is `flash_attention_bwd`, the reference's
+blockwise jnp `_flash_bwd_impl` in PyTorch (the reference has no Pallas
+backward). Decode attends one token against the cache with plain tensor
+ops, as the reference does with einsums.
 """
 from __future__ import annotations
 
 import functools
+import math
 import threading
 
 import numpy as np
@@ -32,7 +36,7 @@ from torch import nn
 
 from repro_torch.kernels import flash_attention as fa
 
-from .config import ModelConfig, _rg_width
+from .config import ModelConfig, MoEConfig, _rg_width
 
 
 # ---------------------------------------------------------------------------
@@ -397,6 +401,230 @@ def _decode_window(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v_cache.dtype), v_cache)
     return out.reshape(B, Hq, 1, v_cache.shape[-1]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (MiniCPM3 / DeepSeek), absorbed form
+# ---------------------------------------------------------------------------
+#
+# With W_uk absorbed into the query and W_uv applied after attention, MLA is
+# MQA with one key head of kv_lora + rope (288) and one value head of
+# kv_lora (256) over the latent, so the decode cache holds only the latent
+# `ckv` and the shared rotary key `kr`.
+
+class MLA(nn.Module):
+    """The MLA weights: the query's down-projection `w_dq` (d, q_lora),
+    its norm `q_norm` and up-projection `w_uq` (q_lora, H x qk_head); the
+    joint latent + rotary-key projection `w_dkv` (d, kv_lora + rope) and
+    the latent's norm `kv_norm`; the per-head absorptions `w_uk` (H, nope,
+    kv_lora) and `w_uv` (H, kv_lora, v); `wo` (H x v, d). H is the padded
+    head count (cfg.tp_pad_heads): the ghost heads' `w_uq` columns, `w_uk`
+    and `w_uv` slices and `wo` rows are zero. Built with a generator it is
+    the reference's `init_mla`."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None,
+                 device: torch.device | str = "cuda"):
+        super().__init__()
+        c, d, H = cfg.mla, cfg.d_model, cfg.num_heads
+        Hp = cfg.num_heads_padded
+        qk = c.qk_nope_head_dim + c.qk_rope_head_dim
+        dev = gen.device if gen is not None else torch.device(device)
+
+        def zeros(*shape):
+            return nn.Parameter(torch.zeros(shape, dtype=torch.bfloat16,
+                                            device=dev), requires_grad=False)
+
+        def ones(n):
+            return nn.Parameter(torch.ones((n,), dtype=torch.bfloat16,
+                                           device=dev), requires_grad=False)
+        self.w_dq = zeros(d, c.q_lora_rank)
+        self.q_norm = ones(c.q_lora_rank)
+        self.w_uq = zeros(c.q_lora_rank, Hp * qk)
+        self.w_dkv = zeros(d, c.kv_lora_rank + c.qk_rope_head_dim)
+        self.kv_norm = ones(c.kv_lora_rank)
+        self.w_uk = zeros(Hp, c.qk_nope_head_dim, c.kv_lora_rank)
+        self.w_uv = zeros(Hp, c.kv_lora_rank, c.v_head_dim)
+        self.wo = zeros(Hp * c.v_head_dim, d)
+        if gen is not None:                 # init_mla
+            s = d ** -0.5
+            self.w_dq[:] = _normal(gen, (d, c.q_lora_rank), s)
+            self.w_uq[:, :H * qk] = _normal(gen, (c.q_lora_rank, H * qk),
+                                            c.q_lora_rank ** -0.5)
+            self.w_dkv[:] = _normal(
+                gen, (d, c.kv_lora_rank + c.qk_rope_head_dim), s)
+            self.w_uk[:H] = _normal(
+                gen, (H, c.qk_nope_head_dim, c.kv_lora_rank),
+                c.qk_nope_head_dim ** -0.5)
+            self.w_uv[:H] = _normal(gen, (H, c.kv_lora_rank, c.v_head_dim),
+                                    c.kv_lora_rank ** -0.5)
+            self.wo[:H * c.v_head_dim] = _normal(
+                gen, (H * c.v_head_dim, d), (H * c.v_head_dim) ** -0.5)
+
+
+def mla_block(params: MLA, x: torch.Tensor, cfg: ModelConfig, mode: str,
+              cache: dict | None, pos: int | None
+              ) -> tuple[torch.Tensor, dict | None]:
+    """x: (B, S, D). Returns (out, new_cache). Attention runs on the
+    absorbed latent: q (B, H, S, kv_lora + rope) against one key head
+    concat(ckv, kr) and one value head ckv, through `flash_attention`
+    (blockwise at these head dims) or, in decode mode, `decode_attention`
+    against the latent cache, whose `ckv` and `kr` (B, S_max, *) get the
+    new token at `pos` in place (the same tensors come back as the new
+    cache). q is scaled in bf16 by qk_head^-0.5 then sqrt(kv_lora + rope),
+    two roundings as in the reference, so that attention's own
+    (kv_lora + rope)^-0.5 leaves the per-head scale."""
+    c = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads_padded
+    qk = c.qk_nope_head_dim + c.qk_rope_head_dim
+
+    ql = rms_norm(x @ params.w_dq, params.q_norm, cfg.rms_eps)
+    q = (ql @ params.w_uq).reshape(B, S, H, qk)
+    q_nope = q[..., :c.qk_nope_head_dim]
+    q_rope = q[..., c.qk_nope_head_dim:].transpose(1, 2)    # (B, H, S, r)
+    dkv = x @ params.w_dkv
+    ckv = rms_norm(dkv[..., :c.kv_lora_rank], params.kv_norm, cfg.rms_eps)
+    k_rope = dkv[..., c.kv_lora_rank:][:, None]             # (B, 1, S, r)
+    # absorb W_uk: q_lat (B, H, S, kv_lora), bf16 as the reference's einsum
+    q_lat = torch.einsum("bshn,hnr->bhsr", q_nope, params.w_uk)
+
+    if mode == "decode":
+        where = torch.arange(pos, pos + 1, device=x.device)
+        q_rope = apply_rope(q_rope, where, cfg.rope_theta)
+        k_rope = apply_rope(k_rope, where, cfg.rope_theta)[:, 0]
+        ckv_cache, kr_cache = cache["ckv"], cache["kr"]
+        ckv_cache[:, pos:pos + 1] = ckv.to(ckv_cache.dtype)
+        kr_cache[:, pos:pos + 1] = k_rope.to(kr_cache.dtype)
+        qf = torch.cat([q_lat, q_rope], dim=-1)
+        kf = torch.cat([ckv_cache, kr_cache], dim=-1)[:, None]
+        out = decode_attention(qf * qk ** -0.5 * qf.shape[-1] ** 0.5, kf,
+                               ckv_cache[:, None], pos)
+        new_cache = {"ckv": ckv_cache, "kr": kr_cache}
+    else:
+        positions = torch.arange(S, device=x.device)
+        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+        k_rope = apply_rope(k_rope, positions, cfg.rope_theta)[:, 0]
+        qf = torch.cat([q_lat, q_rope], dim=-1)
+        kf = torch.cat([ckv, k_rope], dim=-1)[:, None]      # (B, 1, S, 288)
+        out = flash_attention(qf * qk ** -0.5 * qf.shape[-1] ** 0.5, kf,
+                              ckv[:, None], causal=cfg.causal)
+        new_cache = ({"ckv": ckv, "kr": k_rope} if mode == "prefill"
+                     else None)
+
+    o = torch.einsum("bhsr,hrv->bshv", out, params.w_uv)
+    o = o.reshape(B, S, H * c.v_head_dim)
+    return o @ params.wo, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MoE FFN: token-choice top-k routing, per-(batch row, expert) capacity
+# ---------------------------------------------------------------------------
+
+def moe_capacity(m: MoEConfig, tokens_per_row: int) -> int:
+    """Slots per (batch row, expert): the tokens' expected share times the
+    capacity factor, rounded up to a multiple of 8 (at least 8), at most
+    the row."""
+    c = int(math.ceil(tokens_per_row * m.num_experts_per_tok
+                      / m.num_experts * m.capacity_factor))
+    c = max(8, (c + 7) // 8 * 8)
+    return min(c, tokens_per_row)
+
+
+def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest values along the last axis and their indices, equal
+    values in index order, as `jax.lax.top_k` orders them: a stable
+    descending sort, sliced (`torch.topk` orders ties otherwise)."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
+class MoE(nn.Module):
+    """The MoE FFN's weights: the fp32 `router` (d, E), the stacked bf16
+    experts `w_gate`, `w_up` (E, d, f) and `w_down` (E, f, d), and, with
+    `num_shared_experts`, a `shared` SwiGLU of width d_ff_shared x that
+    count. Built with a generator it is the reference's `init_moe`."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None,
+                 device: torch.device | str = "cuda"):
+        super().__init__()
+        m, d = cfg.moe, cfg.d_model
+        E, f = m.num_experts, m.d_ff_expert
+        dev = gen.device if gen is not None else torch.device(device)
+
+        def weight(*shape, scale):
+            w = (_normal(gen, shape, scale) if gen is not None else
+                 torch.empty(shape, dtype=torch.bfloat16, device=dev))
+            return nn.Parameter(w, requires_grad=False)
+        router = (torch.randn((d, E), generator=gen, device=dev) * d ** -0.5
+                  if gen is not None else
+                  torch.empty((d, E), dtype=torch.float32, device=dev))
+        self.router = nn.Parameter(router, requires_grad=False)
+        self.w_gate = weight(E, d, f, scale=d ** -0.5)
+        self.w_up = weight(E, d, f, scale=d ** -0.5)
+        self.w_down = weight(E, f, d, scale=f ** -0.5)
+        if m.num_shared_experts:
+            self.shared = SwiGLU(d, m.d_ff_shared * m.num_shared_experts,
+                                 gen, dev)
+
+
+def moe_ffn(params: MoE, x: torch.Tensor, cfg: ModelConfig
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out (B, S, D), aux): the reference's `moe_ffn`.
+
+    Each token picks its top K experts by fp32 router probability, their
+    weights renormalised to sum 1; each (row, expert) keeps its top C
+    tokens by weight (`moe_capacity`), the rest of its tokens are dropped
+    for it. Both top-k steps take equal values in index order (`top_k`),
+    as `jax.lax.top_k` does. The experts run as batched bf16 matmuls over
+    the (E, B x C, D) dispatch. The combine is deterministic: each token
+    adds its kept experts' weighted outputs in expert order, one bf16 add
+    each, as the reference's scatter-add applies its updates; no atomics.
+    aux is the Switch load-balance loss E * sum_e f_e p_e."""
+    m = cfg.moe
+    B, S, D = x.shape
+    E, K = m.num_experts, m.num_experts_per_tok
+    C = moe_capacity(m, S)
+
+    # fp32 (the router is bf16 after a train step, as the reference casts
+    # it, and its einsum promotes it back)
+    probs = torch.softmax(x.float() @ params.router.float(), dim=-1)
+    topv, topi = top_k(probs, K)
+    topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
+    chosen = torch.zeros_like(probs).scatter(-1, topi, topv)
+    # per (row, expert): the top C tokens by routing weight
+    score = torch.where(chosen > 0, chosen, -1.0).transpose(1, 2)
+    gate_c, idx_c = top_k(score, C)                              # (B, E, C)
+    w_c = torch.where(gate_c > 0, gate_c, 0.0)
+
+    rows = torch.arange(B, device=x.device)[:, None, None]
+    xe = x[rows, idx_c]                                          # (B,E,C,D)
+    xe = xe.transpose(0, 1).reshape(E, B * C, D)
+    gate = torch.bmm(xe, params.w_gate)
+    up = torch.bmm(xe, params.w_up)
+    act = F.silu(gate.float()).to(x.dtype) * up
+    ye = torch.bmm(act, params.w_down).reshape(E, B, C, D).transpose(0, 1)
+    ye = ye * w_c[..., None].to(ye.dtype)                        # (B,E,C,D)
+
+    # combine: token (b, s)'s slot in expert e, or -1, then its K experts'
+    # rows in expert order
+    slot = torch.full((B, E, S), -1, dtype=torch.long, device=x.device)
+    slot.scatter_(2, idx_c, torch.arange(C, device=x.device).expand(B, E, C))
+    experts = topi.sort(dim=-1).values                           # (B, S, K)
+    kslot = slot.transpose(1, 2).gather(2, experts)              # (B, S, K)
+    flat = (experts * C + kslot.clamp_min(0)).reshape(B, S * K, 1)
+    picked = ye.reshape(B, E * C, D).gather(1, flat.expand(B, S * K, D))
+    picked = picked.reshape(B, S, K, D)
+    live = (kslot >= 0)[..., None]
+    out = torch.zeros((B, S, D), dtype=ye.dtype, device=x.device)
+    for j in range(K):
+        out = out + torch.where(live[:, :, j], picked[:, :, j], 0.0)
+    if m.num_shared_experts:
+        out = out + params.shared(x)
+
+    # Switch-style aux loss
+    f = (chosen > 0).float().mean(dim=(0, 1)) / K
+    aux = E * torch.sum(f * probs.mean(dim=(0, 1)))
+    return out, aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,21 @@
 """Model assembly of the port (port of `repro.models.model`), for the
-`attn`, `local_attn` and `rg` block kinds.
+`attn`, `local_attn`, `mla`, `attn_moe` and `rg` block kinds.
 
 `Transformer` is an `nn.Module` holding one `Block` per block of each
 layer: a segment is `count` layers of one superblock of block kinds (one
-`attn` for llama; `rg, rg, local_attn` for recurrentgemma). The reference
+`attn` for llama, one `mla` for minicpm3, one `attn_moe` for phi3.5-moe
+and kimi-k2; `rg, rg, local_attn` for recurrentgemma). The reference
 keeps each segment's layers stacked along a leading `count` axis and scans
 over them; the port keeps a `ModuleList` and loops, and `params_to_tree` /
 `params_from_jax` convert between the two layouts, so a parameter tree
 (and so a checkpoint) has the same bytes in both packages. Caches keep the
 reference's nested layout, one dict per block of the superblock, each leaf
 stacked over the segment's layers: `{"k", "v"}` (count, B, Hkv, S, hd) for
-attention (S = min(window, S_max) for `local_attn`), `{"state"}`
-(count, B, dr) fp32 and `{"conv"}` (count, B, 3, dr) for `rg`.
+attention and `attn_moe` (S = min(window, S_max) for `local_attn`),
+`{"ckv"}` (count, B, S, kv_lora) and `{"kr"}` (count, B, S, rope) for
+`mla`, `{"state"}` (count, B, dr) fp32 and `{"conv"}` (count, B, 3, dr)
+for `rg`. `forward`'s aux is the sum of the `attn_moe` blocks'
+load-balance losses (0 without one), as the reference's scan sums them.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ from repro_torch.device import resolve_device
 from . import layers as L
 from .config import ModelConfig, _rg_width
 
-_PORTED_KINDS = ("attn", "local_attn", "rg")
+_PORTED_KINDS = ("attn", "local_attn", "mla", "attn_moe", "rg")
 
 
 def _check_kinds(cfg: ModelConfig) -> None:
@@ -47,9 +51,11 @@ def _norm_scale(cfg: ModelConfig, device) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One pre-norm residual block of kind `attn` or `local_attn`
-    (attention, windowed for `local_attn`, then SwiGLU) or `rg` (the
-    recurrent block, then SwiGLU): the reference's `_block_apply`."""
+    """One pre-norm residual block, the reference's `_block_apply`: a
+    mixer, then a feed-forward. The mixer is attention for `attn`,
+    `local_attn` (windowed) and `attn_moe`, MLA for `mla`, the recurrent
+    block for `rg`; the feed-forward is the MoE FFN for `attn_moe` and
+    SwiGLU for every other kind."""
 
     def __init__(self, kind: str, cfg: ModelConfig,
                  gen: torch.Generator | None, device: torch.device):
@@ -58,22 +64,36 @@ class Block(nn.Module):
         self.norm1 = _norm_scale(cfg, device)
         if kind == "rg":
             self.rg = L.RG(cfg, gen, device)
+        elif kind == "mla":
+            self.mla = L.MLA(cfg, gen, device)
         else:
             self.attn = L.Attention(cfg, gen, device)
         self.norm2 = _norm_scale(cfg, device)
-        self.mlp = L.SwiGLU(cfg.d_model, cfg.d_ff, gen, device)
+        if kind == "attn_moe":
+            self.moe = L.MoE(cfg, gen, device)
+        else:
+            self.mlp = L.SwiGLU(cfg.d_model, cfg.d_ff, gen, device)
 
     def forward(self, x, cfg: ModelConfig, mode: str, cache, pos):
+        """-> (x, new_cache, aux): aux is the MoE load-balance loss of an
+        `attn_moe` block, None for the other kinds."""
         h = L.rms_norm(x, self.norm1, cfg.rms_eps)
         if self.kind == "rg":
             h, new_cache = L.rg_block(self.rg, h, mode, cache)
+        elif self.kind == "mla":
+            h, new_cache = L.mla_block(self.mla, h, cfg, mode, cache, pos)
         else:
             window = cfg.window if self.kind == "local_attn" else 0
             h, new_cache = L.attention_block(self.attn, h, cfg, mode, cache,
                                              pos, window=window)
         x = x + h
-        x = x + self.mlp(L.rms_norm(x, self.norm2, cfg.rms_eps))
-        return x, new_cache
+        h = L.rms_norm(x, self.norm2, cfg.rms_eps)
+        aux = None
+        if self.kind == "attn_moe":
+            h, aux = L.moe_ffn(self.moe, h, cfg)
+        else:
+            h = self.mlp(h)
+        return x + h, new_cache, aux
 
 
 class Transformer(nn.Module):
@@ -147,6 +167,7 @@ class Transformer(nn.Module):
     def _forward(self, inputs, mode, cache, pos, remat: bool):
         cfg = self.cfg
         x = self.embed[inputs.long()]
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         # per segment, per block of the superblock: each layer's new cache
         per_layer: list[list[list[dict]]] = [
             [[] for _ in seg.blocks] for seg in cfg.segments]
@@ -157,39 +178,46 @@ class Transformer(nn.Module):
                 i += len(seg.blocks)
                 if remat:
                     # no randomness in a block: no RNG state to replay
-                    x = checkpoint(_superblock, x, blocks, cfg,
-                                   use_reentrant=False,
-                                   preserve_rng_state=False)
+                    x, aux_l = checkpoint(_superblock, x, blocks, cfg,
+                                          use_reentrant=False,
+                                          preserve_rng_state=False)
+                    if aux_l is not None:
+                        aux_total = aux_total + aux_l
                     continue
                 for bi, block in enumerate(blocks):
                     lc = None
                     if cache is not None:
                         lc = {name: t[li]
                               for name, t in cache[si][bi].items()}
-                    x, nc = block(x, cfg, mode, lc, pos)
+                    x, nc, aux_b = block(x, cfg, mode, lc, pos)
+                    if aux_b is not None:
+                        aux_total = aux_total + aux_b
                     per_layer[si][bi].append(nc)
         x = L.rms_norm(x, self.final_norm, cfg.rms_eps)
         if cfg.tie_embeddings:
             logits = x @ self.embed.t()
         else:
             logits = x @ self.unembed
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if mode == "train":
-            return logits, None, aux
+            return logits, None, aux_total
         if mode == "decode":             # written in place: same tensors
-            return logits, cache, aux
+            return logits, cache, aux_total
         new_cache = tuple(
             tuple({name: torch.stack([c[name] for c in layers])
                    for name in layers[0]} for layers in seg)
             for seg in per_layer)
-        return logits, new_cache, aux
+        return logits, new_cache, aux_total
 
 
 def _superblock(x, blocks, cfg: ModelConfig):
-    """One superblock in train mode: its blocks in order."""
+    """One superblock in train mode: its blocks in order. Returns x and
+    the sum of its blocks' aux losses (None without an `attn_moe`)."""
+    aux = None
     for block in blocks:
-        x, _ = block(x, cfg, "train", None, None)
-    return x
+        x, _, aux_b = block(x, cfg, "train", None, None)
+        if aux_b is not None:
+            aux = aux_b if aux is None else aux + aux_b
+    return x, aux
 
 
 def forward(model: Transformer, inputs: torch.Tensor, *,
@@ -232,6 +260,10 @@ def _block_cache_spec(kind: str, cfg: ModelConfig, B: int,
         dr = _rg_width(cfg.d_model)
         return {"state": ((B, dr), torch.float32),
                 "conv": ((B, 3, dr), torch.bfloat16)}
+    if kind == "mla":
+        c = cfg.mla
+        return {"ckv": ((B, S_max, c.kv_lora_rank), torch.bfloat16),
+                "kr": ((B, S_max, c.qk_rope_head_dim), torch.bfloat16)}
     s = S_max
     if kind == "local_attn" and cfg.window:
         s = min(cfg.window, S_max)
@@ -254,10 +286,16 @@ def init_cache(cfg: ModelConfig, B: int, S_max: int, *,
 
 def pad_cache_to(cache, cfg: ModelConfig, S_max: int):
     """Right-pad a prefill cache's sequence axis to S_max so decode can
-    write into it: the 5-D `k` / `v` leaves of full attention. Window
-    caches (at most `cfg.window` long) and recurrent states are fixed-size
-    and stay as they are, as in the reference."""
+    write into it: the 5-D `k` / `v` leaves of full attention (axis 3) and
+    the 4-D `ckv` / `kr` latent leaves of MLA (axis 2). Window caches (at
+    most `cfg.window` long) and recurrent states are fixed-size and stay
+    as they are, as in the reference."""
     def pad(name: str, leaf: torch.Tensor) -> torch.Tensor:
+        if name in ("ckv", "kr") and leaf.dim() == 4:
+            s = leaf.shape[2]
+            if s < S_max:
+                return torch.nn.functional.pad(leaf, (0, 0, 0, S_max - s))
+            return leaf
         if name not in ("k", "v") or leaf.dim() != 5:
             return leaf
         s = leaf.shape[3]
@@ -278,18 +316,27 @@ _ATTN = ("wq", "wk", "wv", "wo")
 _BIAS = ("bq", "bk", "bv")
 _RG = ("w_x", "w_gate", "conv_w", "conv_b", "w_rg", "w_ig", "lam", "w_out")
 _MLP = ("w_gate", "w_up", "w_down")
+_MLA = ("w_dq", "q_norm", "w_uq", "w_dkv", "kv_norm", "w_uk", "w_uv", "wo")
+_MOE = ("router", "w_gate", "w_up", "w_down")
 
 
-def _block_names(cfg: ModelConfig, kind: str):
-    """(tree path within a block, module attribute path) of every leaf of
-    a block of `kind`."""
+def _block_names(cfg: ModelConfig, kind: str) -> list[tuple[str, ...]]:
+    """The path of every leaf of a block of `kind`: its keys in the
+    block's tree, which are also its module attributes."""
     if kind == "rg":
-        mixer = [(("rg", n), ("rg", n)) for n in _RG]
+        mixer = [("rg", n) for n in _RG]
+    elif kind == "mla":
+        mixer = [("mla", n) for n in _MLA]
     else:
-        attn = _ATTN + (_BIAS if cfg.qkv_bias else ())
-        mixer = [(("attn", n), ("attn", n)) for n in attn]
-    return (mixer + [(("mlp", n), ("mlp", n)) for n in _MLP]
-            + [(("norm1",), ("norm1",)), (("norm2",), ("norm2",))])
+        mixer = [("attn", n) for n in _ATTN + (_BIAS if cfg.qkv_bias
+                                               else ())]
+    if kind == "attn_moe":
+        ffn = [("moe", n) for n in _MOE]
+        if cfg.moe.num_shared_experts:
+            ffn += [("moe", "shared", n) for n in _MLP]
+    else:
+        ffn = [("mlp", n) for n in _MLP]
+    return mixer + ffn + [("norm1",), ("norm2",)]
 
 
 def params_to_tree(model: Transformer) -> dict:
@@ -311,8 +358,8 @@ def tree_of(model: Transformer, value) -> dict:
             blocks = [b for s, _, i, b in model.layers_of()
                       if (s, i) == (si, bi)]
             tree: dict[str, Any] = {}
-            for path, attr in _block_names(cfg, kind):
-                leaf = torch.stack([value(_param(b, attr)) for b in blocks])
+            for path in _block_names(cfg, kind):
+                leaf = torch.stack([value(_param(b, path)) for b in blocks])
                 node = tree
                 for key in path[:-1]:
                     node = node.setdefault(key, {})
@@ -343,13 +390,13 @@ def param_leaves(model: Transformer, tree: dict):
     for si, seg in enumerate(cfg.segments):
         for bi, kind in enumerate(seg.blocks):
             node = tree["segments"][si][bi]
-            for path, attr in _block_names(cfg, kind):
+            for path in _block_names(cfg, kind):
                 leaf = node
                 for key in path:
                     leaf = leaf[key]
                 stacked = _as_tensor(leaf)
                 for li in range(seg.count):
-                    yield (_param(blocks[(si, li, bi)], attr), stacked[li],
+                    yield (_param(blocks[(si, li, bi)], path), stacked[li],
                            path)
     top = ["final_norm", "embed"] + ([] if cfg.tie_embeddings
                                      else ["unembed"])

@@ -12,10 +12,9 @@ Training, as in the reference:
     they are.
   * **Remat**: `remat="block"` checkpoints each superblock; flash
     attention keeps its own blockwise backward either way.
-  * **Loss**: token-mean cross-entropy of fp32 log-softmax. The
-    reference adds aux_weight x the MoE aux loss; the port has no MoE
-    block yet (ROADMAP A9), so its aux is 0 and the weight comes with
-    that block.
+  * **Loss**: token-mean cross-entropy of fp32 log-softmax plus the
+    model config's `moe.router_aux_weight` x the MoE load-balance loss
+    (the NLL alone without an MoE config).
 
 The state is updated in place (the model's bf16 parameters, the fp32
 optimizer state, the host-side int32 steps); `train_state_to_tree` and
@@ -96,13 +95,18 @@ class _TokenNLL(torch.autograd.Function):
 
 def loss_fn(model: Transformer, tokens: torch.Tensor, labels: torch.Tensor,
             tcfg: TrainConfig = TrainConfig()):
-    """-> (loss, (nll, aux)): the loss is the token-mean NLL of the fp32
-    log-softmax of the train-mode logits; aux, the forward's MoE aux
-    loss, is 0 without an MoE block."""
+    """-> (loss, (nll, aux)): nll is the token-mean NLL of the fp32
+    log-softmax of the train-mode logits, aux the forward's MoE
+    load-balance loss (0 without an MoE block), and the loss
+    nll + model.cfg.moe.router_aux_weight x aux (the reference's
+    `aux_weight`, 0.01 there and in every MoE config), or the nll alone
+    without an MoE config."""
     logits, _, aux = forward(model, tokens, mode="train", remat=tcfg.remat)
     nll = _TokenNLL.apply(logits.reshape(-1, logits.shape[-1]),
                           labels.reshape(-1).long())
-    return nll, (nll, aux)
+    moe = model.cfg.moe
+    loss = nll if moe is None else nll + moe.router_aux_weight * aux
+    return loss, (nll, aux)
 
 
 def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,

@@ -56,6 +56,31 @@ GF_CASES = [
 ]
 
 
+# (S, m, k, B): the encode, the cluster decode, the delta terms (one and
+# two N tiles, four N tiles), a ragged width, fewer tiles than SMs
+GF_PLAN_SHAPES = [(8, 30, 180, 1 << 20), (23, 21, 180, 1 << 20),
+                  (1, 21, 1, 1 << 20), (1, 42, 2, 1 << 20),
+                  (1, 105, 5, 4096), (2, 30, 180, 4097), (1, 1, 20, 1000)]
+
+
+@pytest.mark.parametrize("S,m,k,B", GF_PLAN_SHAPES)
+def test_matmul_plan_is_the_kernels_own_plan(card, S, m, k, B):
+    """`autotune.matmul_plan` against the plan the host code of
+    `gf_matmul_sm90.cu` makes for the same shape on this card
+    (`repro_gf_plan`, which launches nothing), field by field."""
+    from repro_torch.kernels import autotune
+
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    got = gfk.host_plan(S, m, k, B)
+    plan = autotune.matmul_plan(k, m, B, S=S, sms=sms)
+    want = autotune.kernel_plan(m, k)
+    assert (got["threads"], got["grid"], got["smem"], got["k_passes"],
+            got["N"]) == (plan.threads, plan.grid_steps, plan.smem_bytes,
+                          plan.passes, plan.n_width)
+    assert (got["n_tiles"], got["rows_per_tile"], got["steps_per_pass"]) \
+        == (want["n_tiles"], want["rows_per_tile"], want["steps_per_pass"])
+
+
 def _matrix(kind, m, k):
     if kind == "random":
         return _bytes(m * k, (m, k)).numpy()
@@ -337,6 +362,105 @@ def test_recurrentgemma_smoke_on_the_card_matches_the_cpu(card, head_dim):
         .item() < 5e-2 * scale
 
 
+def test_mla_smoke_on_the_card_matches_the_cpu(card):
+    """minicpm3 SMOKE with ghost heads (4 -> 8) on the card against the
+    same weights on the CPU, 40 tokens: train logits, and a prefill of 30
+    then 10 decode steps against the latent cache, within 5e-2 of max
+    |logit|. MLA's head dims (24 + 8, 24) attend blockwise on both."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+
+    cfg = dataclasses.replace(get_config("minicpm3-4b", smoke=True),
+                              name="minicpm3-ghost", tp_pad_heads=8)
+    host = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    dev = params_from_jax(cfg, params_to_tree(host), card)
+    tokens = torch.from_numpy(
+        np.random.default_rng(1).integers(0, 512, (2, 40)))
+    fak.reset_counts()
+    layers.reset_blockwise_calls()
+    got, _, _ = forward(dev, tokens.to(card), mode="train")
+    assert (fak.launches, fak.plain_calls, layers.blockwise_calls) == \
+        (0, 0, 2)
+    want, _, _ = forward(host, tokens, mode="train")
+    scale = want.float().abs().max().item()
+    assert (got.cpu().float() - want.float()).abs().max().item() < 5e-2 * scale
+    _, cache, _ = forward(dev, tokens[:, :30].to(card), mode="prefill")
+    assert cache[0][0]["ckv"].device.type == "cuda"
+    cache = pad_cache_to(cache, cfg, 40)
+    for i in range(30, 40):
+        step, cache, _ = forward(dev, tokens[:, i:i + 1].to(card),
+                                 mode="decode", cache=cache, pos=i)
+        assert (step[:, 0].cpu().float() - want[:, i].float()).abs().max() \
+            .item() < 5e-2 * scale
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b"])
+def test_moe_smoke_on_the_card_matches_the_cpu(card, arch):
+    """An MoE SMOKE model on the card against the same weights on the CPU,
+    in fp32 on both (routing is discontinuous: in bf16 the two devices'
+    roundings can switch the expert of a token whose router
+    probabilities nearly tie): train logits and aux, a prefill of 20 and
+    4 decode steps, within 1e-3 of max |logit| (fp32 products in another
+    order) and aux within 1e-4 relative. Then in bf16, as served: finite
+    logits and a positive aux on the card."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch, smoke=True)
+    host = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    dev = params_from_jax(cfg, params_to_tree(host), card)
+    tokens = torch.from_numpy(
+        np.random.default_rng(2).integers(0, 512, (2, 24)))
+    got, _, aux = forward(dev, tokens.to(card), mode="train")
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(
+        got.float()).all()) and float(aux) > 0
+    host32, dev32 = host.float(), dev.float()
+    want, _, want_aux = forward(host32, tokens, mode="train")
+    got, _, aux = forward(dev32, tokens.to(card), mode="train")
+    scale = want.abs().max().item()
+    assert (got.cpu() - want).abs().max().item() < 1e-3 * scale
+    assert abs(float(aux) - float(want_aux)) <= 1e-4 * float(want_aux)
+    # the same prefill and decode steps on both devices (a decode step
+    # routes one token, with no capacity to drop it: it is compared with
+    # the other device's decode step, not with a prefill)
+    _, cache, _ = forward(dev32, tokens[:, :20].to(card), mode="prefill")
+    _, host_cache, _ = forward(host32, tokens[:, :20], mode="prefill")
+    cache = pad_cache_to(cache, cfg, 24)
+    host_cache = pad_cache_to(host_cache, cfg, 24)
+    for i in range(20, 24):
+        step, cache, _ = forward(dev32, tokens[:, i:i + 1].to(card),
+                                 mode="decode", cache=cache, pos=i)
+        want_i, host_cache, _ = forward(host32, tokens[:, i:i + 1],
+                                        mode="decode", cache=host_cache,
+                                        pos=i)
+        assert (step[:, 0].cpu() - want_i[:, 0]).abs().max().item() < \
+            1e-3 * scale
+
+
+def test_moe_combine_is_deterministic_on_the_card(card):
+    """The MoE FFN at phi3.5-moe's SMOKE width on the card, twice on the
+    same input: the same bits (the combine gathers each token's slots and
+    adds them in expert order; no atomics), and within 2e-2 of the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+
+    cfg = get_config("phi3.5-moe-42b-a6.6b", smoke=True)
+    host = layers.MoE(cfg, torch.Generator().manual_seed(0), "cpu")
+    dev = layers.MoE(cfg, device=card)
+    dev.load_state_dict(host.state_dict())
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(4, 256, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    with torch.inference_mode():
+        a, aux_a = layers.moe_ffn(dev, x.to(card), cfg)
+        b, aux_b = layers.moe_ffn(dev, x.to(card), cfg)
+        want, _ = layers.moe_ffn(host, x, cfg)
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    assert float(aux_a) == float(aux_b)
+    scale = want.float().abs().max().item()
+    assert (a.cpu().float() - want.float()).abs().max().item() <= 2e-2 * scale
+
+
 @pytest.mark.parametrize("d", [16, 80])
 def test_layer_off_the_kernel_head_dims_on_the_card(card, d):
     """A head dim the flash kernel lacks goes through the layer on the card
@@ -496,7 +620,8 @@ def test_flash_layer_gradient_on_the_card(card, window):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "phi4-mini-3.8b",
-                                  "qwen1.5-32b"])
+                                  "qwen1.5-32b", "minicpm3-4b",
+                                  "phi3.5-moe-42b-a6.6b"])
 def test_train_step_on_the_card_matches_the_cpu(card, arch):
     """One `make_train_step` (accum 2, remat) from the same state on the
     card and on the CPU: loss and grad norm within 2e-2 relative, and the
@@ -504,7 +629,15 @@ def test_train_step_on_the_card_matches_the_cpu(card, arch):
     m is (1 - b1) x the clipped gradient, and each leaf's m on the card
     is within 2e-2 of that leaf's max |m| on the CPU. (The parameters
     are no witness: the first AdamW step moves every element by about
-    lr x sign(grad) whatever the gradient's size.)"""
+    lr x sign(grad) whatever the gradient's size.)
+
+    phi3.5-moe's m is compared with every leaf in fp32 on both devices:
+    in bf16 the two devices' roundings switch the expert of a token whose
+    router probabilities nearly tie (measured on the H100: 2 of 256
+    tokens, 2nd and 3rd probability 0.24114 and 0.24027 on the CPU,
+    reversed on the card), which moves the router's and the experts' m by
+    up to 6.4e-2 of their max; in fp32 no token switches. Its bf16 step
+    is held to the loss and grad norm bound."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticTokenDataset
     from repro_torch.optim import AdamWConfig
@@ -512,17 +645,22 @@ def test_train_step_on_the_card_matches_the_cpu(card, arch):
                                    make_train_step, train_state_from_jax,
                                    train_state_to_tree)
     cfg = get_config(arch, smoke=True)
-    host = init_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
-    dev = train_state_from_jax(cfg, train_state_to_tree(host), card)
     ocfg = AdamWConfig(lr=1e-3, warmup_steps=1)
     step = make_train_step(cfg, ocfg, TrainConfig(accum=2, remat="block"))
     tokens, labels = SyntheticTokenDataset(
         DataConfig(cfg.vocab_size, 64, 4)).batch(0)
-    host, want = step(host, tokens, labels)
-    dev, got = step(dev, tokens, labels)
-    for key in ("loss", "grad_norm"):
-        assert abs(float(got[key]) - float(want[key])) <= \
-            2e-2 * abs(float(want[key])), key
+    for fp32 in ((False, True) if cfg.moe else (False,)):
+        host = init_train_state(cfg, torch.Generator().manual_seed(0),
+                                "cpu")
+        dev = train_state_from_jax(cfg, train_state_to_tree(host), card)
+        if fp32:
+            host.model.float()
+            dev.model.float()
+        host, want = step(host, tokens, labels)
+        dev, got = step(dev, tokens, labels)
+        for key in ("loss", "grad_norm"):
+            assert abs(float(got[key]) - float(want[key])) <= \
+                2e-2 * abs(float(want[key])), key
     for a, b in zip(host.params, dev.params):
         assert b.device.type == "cuda" and a.dtype == b.dtype
     names = [n for n, _ in host.model.named_parameters()]

@@ -39,7 +39,9 @@ SLICE_MODULES = [
     "repro_torch.optim.adamw", "repro_torch.optim.compress",
     "repro_torch.train", "repro_torch.train.step",
     "repro_torch.launch.train", "repro_torch.configs.phi4_mini_38b",
-    "repro_torch.configs.qwen15_32b",
+    "repro_torch.configs.qwen15_32b", "repro_torch.configs.minicpm3_4b",
+    "repro_torch.configs.phi35_moe_42b_a66b",
+    "repro_torch.configs.kimi_k2_1t_a32b",
 ]
 
 _PROBE = r"""
@@ -67,6 +69,33 @@ def test_port_imports_no_jax_and_no_reference():
     count, rest = out.stdout.split(" ", 1)
     assert int(count) >= 50
     assert rest.strip() == "[] []"
+
+
+_EXAMPLES_PROBE = r"""
+import importlib.util, pathlib, sys
+sys.modules["jax"] = None            # any `import jax` now raises
+for path in sorted(pathlib.Path(EXAMPLES).glob("*_torch.py")):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    print(path.stem)
+bad = sorted(m for m in sys.modules
+             if (m.startswith("jax") and sys.modules[m] is not None)
+             or m == "repro" or m.startswith("repro."))
+print(bad)
+"""
+
+
+def test_examples_import_no_jax_and_no_reference():
+    """The example ports (`examples/*_torch.py`) load with jax blocked and
+    pull in nothing of the reference package."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    probe = f"EXAMPLES = {str(SRC.parent / 'examples')!r}\n" + \
+        _EXAMPLES_PROBE
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["quickstart_torch", "serving_torch",
+                                  "train_with_failures_torch", "[]"]
 
 
 def test_default_backend_is_cuda_and_never_falls_back():

@@ -469,8 +469,11 @@ def test_autotune_keeps_the_reference_planner_and_cache(tmp_path,
     for k, n, bs in ((30, 42, 1 << 20), (180, 210, 1 << 20), (4, 6, 7)):
         assert autotune.plan_stream_windows(k, n, bs) == \
             ref_autotune.plan_stream_windows(k, n, bs)
+    # the encode's launch (gf_matmul_sm90.cu's host plan): 384 threads,
+    # two K passes in 215,104 B of shared memory, one CTA per SM
     plan = autotune.matmul_plan(180, 30, 1 << 20)
-    assert (plan.pad, plan.smem_bytes, plan.grid_steps) == (0, 23040, 256)
+    assert (plan.pad, plan.smem_bytes, plan.grid_steps) == (0, 215104, 132)
+    assert (plan.threads, plan.passes, plan.n_width) == (384, 2, 240)
     assert autotune.xor_plan(20, 3001).grid_steps == 1
     monkeypatch.delenv(autotune.CACHE_ENV, raising=False)
     with pytest.raises(ValueError):
@@ -484,3 +487,28 @@ def test_autotune_keeps_the_reference_planner_and_cache(tmp_path,
     assert ref_autotune.load_timings(path) == autotune.load_timings()
     path.write_text("{not json")
     assert autotune.load_timings() == {}
+
+
+# (k, m, S, B) -> (threads, grid, smem, passes, N): the encode, the
+# cluster decode and the delta terms, worked out by hand from
+# `make_plan` in csrc/gf_matmul_sm90.cu (the card test compares the
+# host's own plan)
+GF_PLANS = [
+    ((180, 30, 8, 1 << 20), (384, 132, 215104, 2, 240)),   # encode
+    ((180, 21, 23, 1 << 20), (384, 132, 168000, 2, 176)),  # cluster decode
+    ((1, 21, 1, 1 << 20), (384, 132, 10304, 1, 176)),      # delta terms
+    ((2, 42, 1, 1 << 20), (384, 132, 10304, 1, 176)),      # over 2 N tiles
+    ((180, 30, 1, 256), (384, 2, 215104, 2, 240)),         # 2 tiles: 2 CTAs
+    ((20, 1, 2, 1000), (384, 16, 15424, 1, 32)),            # K padded
+]
+
+
+@pytest.mark.parametrize("shape,want", GF_PLANS)
+def test_matmul_plan_is_the_gf_kernels_host_plan(shape, want):
+    from repro_torch.kernels import autotune
+    k, m, S, B = shape
+    plan = autotune.matmul_plan(k, m, B, S=S)
+    assert (plan.threads, plan.grid_steps, plan.smem_bytes, plan.passes,
+            plan.n_width) == want
+    assert plan.smem_bytes <= autotune.SMEM_LIMIT and plan.block_b == 128
+    assert autotune.matmul_plan(k, m, B, S=S, sms=1).grid_steps == 1

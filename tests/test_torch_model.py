@@ -233,7 +233,9 @@ def test_full_width_leaf_shapes_match_reference(arch, physical, nbytes,
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "recurrentgemma-9b",
-                                  "phi4-mini-3.8b", "qwen1.5-32b"])
+                                  "phi4-mini-3.8b", "qwen1.5-32b",
+                                  "minicpm3-4b", "phi3.5-moe-42b-a6.6b",
+                                  "kimi-k2-1t-a32b"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_are_the_reference_configs(smoke, arch):
     want = ref_get_config(arch, smoke=smoke)
@@ -245,7 +247,8 @@ def test_configs_are_the_reference_configs(smoke, arch):
 def test_unported_archs_raise_naming_the_roadmap():
     assert len(all_archs()) == 10
     assert set(PORTED) == {"llama3.2-3b", "recurrentgemma-9b",
-                           "phi4-mini-3.8b", "qwen1.5-32b"}
+                           "phi4-mini-3.8b", "qwen1.5-32b", "minicpm3-4b",
+                           "phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b"}
     for arch in all_archs():
         if arch in PORTED:
             continue
@@ -287,8 +290,17 @@ def test_serve_run_recurrentgemma_on_the_cpu():
 
 
 def test_serve_default_arch_needs_mla():
-    with pytest.raises(NotImplementedError, match="MLA"):
-        serve.run(["--device", "cpu"])
+    """The server's default arch, minicpm3-4b, runs MLA: its SMOKE config
+    serves on the CPU, every prefill layer attending blockwise (MLA's
+    absorbed head dims, 24 + 8 and 24, take no flash kernel)."""
+    fak.reset_counts()
+    layers.reset_blockwise_calls()
+    out = serve.run(["--device", "cpu", "--requests", "3", "--batch", "2",
+                     "--prompt-len", "16", "--gen", "4"])
+    assert [t.shape for t in out["tokens"]] == [(2, 4), (1, 4)]
+    assert out["served_tokens"] == 3 * (16 + 4)
+    assert (fak.launches, fak.plain_calls) == (0, 0)
+    assert layers.blockwise_calls == 2 * 2
 
 
 def test_serve_is_greedy_and_deterministic():

@@ -26,12 +26,23 @@ Tolerances, with the error measured when this file was written:
     (recurrentgemma) of max |grad| here, so two bf16 implementations
     cannot agree within a flat 2e-2 (the flat errors are 2.1e-2 to
     2.2e-2 for the attention configs, 5.1e-2 for recurrentgemma).
-    Measured excess: at most 9.1e-3 for the attention configs;
-    recurrentgemma's rg blocks (bf16 gates into an fp32 scan) reach
-    2.1e-2 (3.3e-2 at other batch shapes tried), so they are held to
-    5e-2;
+    Measured excess: at most 9.1e-3 for the attention configs, 9.3e-3
+    for minicpm3's MLA; recurrentgemma's rg blocks (bf16 gates into an
+    fp32 scan) reach 2.1e-2 (3.3e-2 at other batch shapes tried), so
+    they are held to 5e-2. phi3.5-moe's loss includes 0.01 x its
+    load-balance loss, held to 1e-5 relative in fp32 and 1e-3 in bf16
+    (measured: within 1.6e-6 of max |grad| on every leaf in fp32); in
+    bf16 the reference's own error reaches 0.24 of a leaf's max |grad|,
+    since bf16 and fp32 activations route some tokens to other experts,
+    so a leaf's bound reaches about 0.26 there: for phi3.5-moe the bf16
+    case checks that training runs (loss and aux within 1e-3, every
+    leaf's dtype, gradients in the reference's neighbourhood), not that
+    the gradients agree leaf by leaf; the fp32 case, at 1e-4, is the
+    check of its gradients. The fp32 router's gradient is fp32 in both
+    packages;
 - five train steps: the reference's loss trajectory within 1e-2
-  (measured 1.0e-3 to 3.6e-3).
+  (measured 1.0e-3 to 3.6e-3; phi3.5-moe, aux included, 3.8e-4 to
+  6.4e-3).
 """
 import dataclasses
 
@@ -399,6 +410,8 @@ CONFIGS = {
     "ghost_heads": ("llama3.2-3b", {"name": "llama3.2-ghost",
                                     "tp_pad_heads": 4}),
     "recurrentgemma": ("recurrentgemma-9b", {}),
+    "minicpm3": ("minicpm3-4b", {}),                   # mla
+    "phi35_moe": ("phi3.5-moe-42b-a6.6b", {}),         # attn_moe, aux
 }
 
 
@@ -435,7 +448,9 @@ def grads(request):
                                           torch.from_numpy(labels))
         got.backward()
         out[prec] = dict(
-            loss=float(loss), got=float(got.detach()), aux=float(got_aux),
+            loss=float(loss), got=float(got.detach()),
+            aux=float(got_aux.detach()),
+            ref_aux=float(aux),
             nll=(float(nll), float(got_nll.detach())),
             want=jax.tree_util.tree_leaves_with_path(g),
             port=jax.tree_util.tree_leaves_with_path(
@@ -446,6 +461,7 @@ def grads(request):
 def test_loss_and_grads_match_reference_in_fp32(grads):
     r = grads["fp32"]
     assert abs(r["got"] - r["loss"]) <= 1e-5 * r["loss"]
+    assert abs(r["aux"] - r["ref_aux"]) <= 1e-5 * r["ref_aux"]
     assert [p for p, _ in r["want"]] == [p for p, _ in r["port"]]
     for (path, a), (_, b) in zip(r["want"], r["port"]):
         assert _rel(a, b) < 1e-4, jax.tree_util.keystr(path)
@@ -454,15 +470,23 @@ def test_loss_and_grads_match_reference_in_fp32(grads):
 def test_loss_and_grads_match_reference_in_bf16(grads):
     r, r32 = grads["bf16"], grads["fp32"]
     assert abs(r["got"] - r["loss"]) <= 1e-3 * r["loss"]
-    assert r["aux"] == 0.0 and abs(r["nll"][0] - r["nll"][1]) <= \
-        1e-3 * r["nll"][0]
+    assert abs(r["nll"][0] - r["nll"][1]) <= 1e-3 * r["nll"][0]
+    if grads["name"] == "phi35_moe":      # the load-balance loss
+        assert r["ref_aux"] > 0
+        assert abs(r["aux"] - r["ref_aux"]) <= 1e-3 * r["ref_aux"]
+    else:
+        assert r["aux"] == r["ref_aux"] == 0.0
     tol = 5e-2 if grads["name"] == "recurrentgemma" else 2e-2
     names = set()
     for (path, a), (_, b), (_, c) in zip(r["want"], r["port"], r32["want"]):
         name = jax.tree_util.keystr(path)
         names.add(name.split("[")[-1])
-        assert b.dtype == torch.bfloat16 or "lam" in name, name
-        noise = _rel(c, a)              # the reference's own bf16 error
+        assert b.dtype == torch.bfloat16 or "lam" in name or \
+            "router" in name, name
+        # the reference's own bf16 error; for phi3.5-moe it reaches 0.24
+        # (routing), so its leaves are held only loosely here: the fp32
+        # test is the check of its gradients
+        noise = _rel(c, a)
         assert _rel(a, b) < tol + noise, (name, _rel(a, b), noise)
     if grads["name"] == "qwen":
         assert {"'bq']", "'bk']", "'bv']"} <= names     # the biases train
@@ -502,7 +526,7 @@ def _run(step_fn, ds, state, lo, hi):
 
 
 @pytest.mark.parametrize("name,accum", [("llama", 1), ("llama", 2),
-                                        ("qwen", 1)])
+                                        ("qwen", 1), ("phi35_moe", 1)])
 def test_train_steps_follow_the_reference(name, accum):
     ref_cfg, cfg = _configs(name)
     state = ref_init_train_state(ref_cfg, jax.random.PRNGKey(0))
