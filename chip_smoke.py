@@ -14,9 +14,12 @@ Drives the port's main path on one CUDA card and checks every byte:
      shared memory, K passes, N width; 2e-2 in bf16 and 2e-5 / 1e-4 in
      fp32 for attention, at head
      dims 64, 128 and 256: recurrentgemma's windowed MQA prefill and the
-     64-key tile's edges; fp32, on the tensor cores as 3xTF32, at the
-     llama and recurrentgemma prefill shapes, d = 64 and a small GQA
-     shape), with its median time over CUDA events, the plain version's
+     64-key tile's edges; llama-3.2-vision's cross-attention, not
+     causal, over 6,404 keys at Sq 2,048 and Sq 1, to `CROSS_TOLS`,
+     which the plain version over an unmasked key tail must fail; fp32,
+     on the tensor
+     cores as 3xTF32, at the llama and recurrentgemma prefill shapes, d =
+     64 and a small GQA shape), with its median time over CUDA events, the plain version's
      time, the bound and bound share (fp32: three TF32 products per
      product at the TF32 rate) and, for attention, PyTorch's
      `scaled_dot_product_attention` as a yardstick; ptxas must report 0
@@ -54,7 +57,8 @@ Drives the port's main path on one CUDA card and checks every byte:
      byte-identical), rebuilt, and served: 8 requests of 2048 prompt + 32
      generated tokens in batches of 4, every prefill attention layer
      through the flash kernel (no blockwise attention); prefill + decode
-     checked against prefill;
+     checked against prefill; a prefill's host time beside its device
+     time (torch.profiler) printed, as in every served phase;
   8. the server's own entry point at its SMOKE config (head dim 16, which
      no flash kernel takes): `repro_torch.launch.serve.run` completes on
      the card, attending blockwise with no flash launch;
@@ -120,14 +124,42 @@ Drives the port's main path on one CUDA card and checks every byte:
      against prefill in fp32 and, per sequence, on the bf16 weights at
      full-row capacity, a sequence exempt only where its routing
      switched at a near tie (`routing_switches`);
+ 15. rwkv6-7b at full width (32 `rwkv` layers, 64 wkv heads of 64; 7.52 B
+     parameters, 15.04 GB with fp32 `decay_base` / `bonus` leaves) through
+     the same drill: 80 stripes in windows of 8, restored degraded byte
+     for byte with zero cross-cluster bytes, rebuilt, the llama cell's
+     traffic; no attention anywhere (no flash launch, no blockwise call):
+     the chunked WKV scan in fp32 (TF32 off), 64 chunks a layer; decode,
+     the exact one-step recurrence, against a prefill of 2,047 tokens
+     (23-token chunks);
+ 16. llama-3.2-vision-11b at full width (8 x (4 attn + 1 cross_attn), 32
+     / 8 heads at 128; 9.78 B parameters, 19.55 GB, 104 stripes), its
+     gates drawn from U(0.3, 0.9) before the save so that they go through
+     the checkpoint and the decode check sees the cross-attention; each
+     batch a (4, 6404, 4096) bf16 stub vision input; 8 requests of
+     2,048 + 32 tokens in batches of 4; every attention through the flash
+     kernel: 40 launches a prefill batch (32 causal, 8 not causal over
+     6,404 vision keys) and 8 a decode step (Sq 1), none plain or
+     blockwise; decode (the vision keys read unpadded from the cache,
+     ROADMAP C3) against prefill within 5e-2;
+ 17. hubert-xlarge at full width (48 layers, d 1280, 16 heads at 80,
+     embedding-free, not causal; 1.26 B parameters, 2.52 GB, 14 stripes)
+     through the drill, then the reference's `encode` cell: 8 sequences
+     of 2,048 seeded frame embeddings, 4 at a time (48 blockwise calls a
+     batch: head dim 80 takes no kernel), each sequence alone against its
+     row of the batch, and a card-vs-CPU witness at the same width cut to
+     2 layers on 1 x 512 frames, both within 5e-2 of max |logit|;
      then the example programs on the card: `examples/serving_torch.py`
      and `examples/train_with_failures_torch.py` at their defaults, each
      to its own OK line;
   5. a JSON line of per-kernel numbers (five rows: gf, xor, flash d=128,
      flash d=256, and the fp32 flash kernel at d = 64, 128 and 256, which
      no serve path runs; gf, xor and flash d=128 count their launches per
-     path, the simulator's, training's, phases 13 and 14's and the
-     training example's included), the card line, and the result line
+     path, the simulator's, training's, phases 13-17's and the training
+     example's included; the flash d=128 row carries phase 16's two
+     cross-attention shapes under `cross_shapes`, each with its
+     launches as the wrapper counted them by mode, its error and the
+     unmasked tail's, times and bound), the card line, and the result line
      `{"ok": true, "device": {...}}` last.
 
 Any failed check exits non-zero before the result line. Without a CUDA
@@ -158,6 +190,14 @@ BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core rate
 TF32_OPS_PER_S = 495e12            # H100 SXM dense TF32 tensor-core rate
 GIB = 1 << 30
 MIB = 1 << 20
+# phase 3's bounds on out and lse at the cross-attention shapes (not
+# causal over 6,404 unit-normal keys): each output averages ~2,400
+# effective keys, so |out| ~ 0.02 and the bf16 cases' 2e-2 would pass
+# anything. Measured on an H100: 4.9e-4 and 9.5e-6. A kernel that left the
+# 124 padded keys of the last 128-key tile unmasked (each scores 0) would
+# move lse by log(1 + 124 / 10,560) ~ 1.2e-2: the case checks that the
+# plain version computed so fails these bounds
+CROSS_TOLS = (2e-3, 1e-3)
 
 
 def fail(msg: str) -> None:
@@ -717,9 +757,9 @@ def frontend_path(codec, metas, payload, updated: dict, seed: int) -> dict:
 # 180-of-210 at 1 MiB blocks, stripes per encode window (None: the
 # manager's default of 64), the traffic: requests of prompt + gen tokens,
 # `batch` at a time, and the prefill attention's route: every attention
-# layer of each prefill batch launches the flash kernel ("kernel") or
-# attends blockwise ("blockwise"); `layers` cuts the depth, `reduced`
-# says why
+# layer of each prefill batch launches the flash kernel ("kernel"),
+# attends blockwise ("blockwise") or has none ("none"); `counts` cuts the
+# depth (the layers of each segment), `reduced` says why a cell is cut
 SERVE_CELLS = {
     "llama3.2-3b": dict(params=3_388_910_592, stripes=36, window=None,
                         batch=4, requests=8, prompt=2048, gen=32,
@@ -750,9 +790,34 @@ SERVE_CELLS = {
     # cell's traffic
     "phi3.5-moe-42b-a6.6b": dict(
         params=5_463_904_256, stripes=58, window=8, batch=4, requests=8,
-        prompt=2048, gen=32, attention="kernel", layers=4,
+        prompt=2048, gen=32, attention="kernel", counts=(4,),
         reduced="depth 4 of 32 layers: the 32-layer model is 83.7 GB of "
                 "weights, more than the card's 80 GB"),
+    # phase 15: rwkv6-7b, nothing cut: 32 `rwkv` layers of 64 wkv heads of
+    # 64 (d 4096, d_ff 14336, vocab 65536), 15,035,801,600 bytes (fp32
+    # `decay_base` and `bonus`) in 80 stripes; no attention: the chunked
+    # WKV scan, 64 chunks a layer at 2,048 tokens (23-token chunks at the
+    # decode check's 2,047). The llama cell's traffic
+    "rwkv6-7b": dict(params=7_517_638_656, stripes=80, window=8, batch=4,
+                     requests=8, prompt=2048, gen=32, attention="none"),
+    # phase 16: llama-3.2-vision-11b at full width: 8 x (4 attn + 1
+    # cross_attn), 32 / 8 heads at head dim 128, 19,550,314,560 bytes (the
+    # fp32 gates) in 104 stripes; each batch a (4, 6404, 4096) bf16 stub
+    # vision input. The flash kernel at every attention: causal
+    # self-attention at prefill, and cross-attention, not causal, over
+    # 6,404 keys at prefill (Sq 2,048) and at every decode step (Sq 1).
+    # The llama cell's traffic
+    "llama-3.2-vision-11b": dict(
+        params=9_775_157_264, stripes=104, window=8, batch=4, requests=8,
+        prompt=2048, gen=32, attention="kernel"),
+    # phase 17: hubert-xlarge, nothing cut: 48 `attn` layers, d 1280, 16
+    # heads at head dim 80 (blockwise, as the reference routes 80 to jnp),
+    # not causal, no embedding: 2,518,120,960 bytes in 14 stripes; the
+    # reference's `encode` cell: 8 sequences of 2,048 seeded frame
+    # embeddings encoded 4 at a time, no decode
+    "hubert-xlarge": dict(params=1_259_060_480, stripes=14, window=8,
+                          batch=4, requests=8, prompt=2048,
+                          attention="blockwise"),
 }
 
 
@@ -828,71 +893,44 @@ def routing_switches(calls: list, L: int, P: int, B: int) -> list:
     return out
 
 
-def serve_path(seed: int, arch: str, tag: str = "") -> dict:
-    """The serving path of one full-width model (`SERVE_CELLS[arch]`,
-    random weights from `seed`, cut in depth where the cell says):
-    checkpointed as UniLRC 180-of-210 stripes, restored degraded after a
-    node loss, rebuilt and served. Checks every restored byte, the
-    restore's locality, the attention route (per attention layer of each
-    prefill batch, one flash launch or one blockwise call) and the
-    logits; exits on the first failed check. Phase lines are named with
-    `tag` in front. Returns the flash kernel's launches, plain calls and
-    blockwise calls on the serve run, and the coding kernels' launches of
-    the save, the restore and the rebuild (`gf_bitmatmul`,
-    `xor_reduce`)."""
-    import copy
-    import dataclasses
+def attention_routes(cfg) -> tuple[int, int]:
+    """(attention calls per prefill, per decode step) of `cfg`: one per
+    self-attention layer (`attn`, `local_attn`, `mla`, `attn_moe`) and per
+    `cross_attn` layer at prefill, one per `cross_attn` layer per decode
+    step (self-attention decode attends with plain tensor ops); `rg` and
+    `rwkv` layers attend to nothing."""
+    count = {}
+    for seg in cfg.segments:
+        for kind in seg.blocks:
+            count[kind] = count.get(kind, 0) + seg.count
+    cross = count.get("cross_attn", 0)
+    return (sum(n for kind, n in count.items()
+                if kind not in ("rg", "rwkv")), cross)
 
+
+def checkpoint_drill(tree, cell: dict, tag: str):
+    """6.1-6.3 of the serve path: a parameter tree (on the card) saved as
+    UniLRC 180-of-210 stripes (1 MiB blocks, `cell["window"]` stripes an
+    encode launch), one node lost, a degraded restore (cluster-local,
+    every leaf byte-identical), the rebuild. Returns the restored tree
+    (host tensors) and the coding kernels' launches of the save, the
+    restore and the rebuild."""
     import torch
 
     from repro_torch.ckpt import BlockStore, CheckpointManager
-    from repro_torch.configs import get_config
     from repro_torch.core import make_unilrc
     from repro_torch.io import TorchBackend
-    from repro_torch.kernels import flash_attention as fak
     from repro_torch.kernels import gf_bitmatmul as gfk
     from repro_torch.kernels import xor_reduce as xrk
-    from repro_torch.launch.serve import serve
-    from repro_torch.models import (Segment, forward, init_params, layers,
-                                    pad_cache_to, params_from_jax,
-                                    params_to_tree)
     from repro_torch.topo import Topology
 
-    cell = SERVE_CELLS[arch]
     dev = torch.device("cuda")
-    cfg = get_config(arch)
-    if "layers" in cell:
-        (seg,) = cfg.segments
-        cfg = dataclasses.replace(
-            cfg, name=f"{cfg.name}-{cell['layers']}l",
-            segments=(Segment(seg.blocks, cell["layers"]),))
-        phase(f"{tag}serve reduced", arch=arch, reduced=repr(cell["reduced"]))
-    attn_layers = sum(seg.count * sum(kind != "rg" for kind in seg.blocks)
-                      for seg in cfg.segments)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    t0 = time.perf_counter()
-    model = init_params(cfg, gen, dev)
-    torch.cuda.synchronize()
-    nparams = sum(p.numel() for p in model.parameters())
-    phase(f"{tag}serve init", arch=cfg.name, layers=cfg.num_layers,
-          attention_layers=attn_layers, d_model=cfg.d_model,
-          q_heads=cfg.num_heads_padded, kv_heads=cfg.num_kv_heads_padded,
-          head_dim=cfg.resolved_head_dim, window=cfg.window, d_ff=cfg.d_ff,
-          vocab=cfg.vocab_size, params=nparams,
-          param_count=cfg.param_count(),
-          GB=f"{sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.3f}",
-          seconds=f"{time.perf_counter() - t0:.2f}")
-    check(nparams == cell["params"], f"{nparams} parameters")
-
     # 6.1 save: the weights as a 180-of-210 checkpoint, 1 MiB blocks
     store = BlockStore(Topology(num_clusters=10, nodes_per_cluster=24))
     mgr = CheckpointManager(store, make_unilrc(2, 10), block_size=MIB,
                             backend=TorchBackend("cuda"))
     if cell["window"]:
         mgr.codec.max_batch_stripes = cell["window"]
-    tree = params_to_tree(model)
-    del model
     gfk.reset_counts()
     xrk.reset_counts()
     t0 = time.perf_counter()
@@ -943,7 +981,6 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
         nleaves += 1
     phase(f"{tag}ckpt bytes", leaves=nleaves, dtypes=",".join(sorted(dtypes)),
           identical=True)
-    del tree
     gfk.reset_counts()
     xrk.reset_counts()
     rebuilt = mgr.reconstruct_failures()
@@ -952,9 +989,79 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
     coding["xor_reduce"] += xrk.launches
     phase(f"{tag}ckpt rebuild", blocks=rebuilt, gf_launches=gfk.launches,
           xor_launches=xrk.launches, coding_launches=json.dumps(coding))
+    return restored, coding
+
+
+def serve_path(seed: int, arch: str, tag: str = "") -> dict:
+    """The serving path of one full-width model (`SERVE_CELLS[arch]`,
+    random weights from `seed`, cut in depth where the cell says):
+    checkpointed as UniLRC 180-of-210 stripes, restored degraded after a
+    node loss, rebuilt and served. Checks every restored byte, the
+    restore's locality, the attention route (`attention_routes`: per
+    attention layer of each prefill batch and per cross-attention layer
+    of each decode step, one flash launch or one blockwise call) and the
+    logits; exits on the first failed check. A vision model's gates are
+    drawn from U(0.3, 0.9) before the save (at 0 its cross-attention adds
+    nothing, and the decode check could not see it) and each batch gets
+    stub vision embeddings; an encoder-only model is encoded instead of
+    served (`encode_path`). Phase lines are named with `tag` in front.
+    Returns the flash kernel's launches, plain calls and blockwise calls
+    on the serve or encode run, and the coding kernels' launches of the
+    save, the restore and the rebuild (`gf_bitmatmul`, `xor_reduce`)."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import (Segment, forward, init_params, layers,
+                                    pad_cache_to, params_from_jax,
+                                    params_to_tree)
+
+    cell = SERVE_CELLS[arch]
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    if "counts" in cell:
+        cfg = dataclasses.replace(cfg, segments=tuple(
+            Segment(seg.blocks, n)
+            for seg, n in zip(cfg.segments, cell["counts"], strict=True)))
+        cfg = dataclasses.replace(cfg, name=f"{cfg.name}-{cfg.num_layers}l")
+    if "reduced" in cell:
+        phase(f"{tag}serve reduced", arch=arch, reduced=repr(cell["reduced"]))
+    attn_layers, cross_layers = attention_routes(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    model = init_params(cfg, gen, dev)
+    gates = []
+    for block in model.blocks:
+        if block.kind == "cross_attn":
+            for g in (block.xattn.gate_attn, block.xattn.gate_ffn):
+                g.uniform_(0.3, 0.9, generator=gen)
+                gates.append(round(g.item(), 4))
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in model.parameters())
+    phase(f"{tag}serve init", arch=cfg.name, layers=cfg.num_layers,
+          attention_layers=attn_layers, cross_attention_layers=cross_layers,
+          d_model=cfg.d_model,
+          q_heads=cfg.num_heads_padded, kv_heads=cfg.num_kv_heads_padded,
+          head_dim=cfg.resolved_head_dim, window=cfg.window, d_ff=cfg.d_ff,
+          vocab=cfg.vocab_size, params=nparams,
+          param_count=cfg.param_count(),
+          GB=f"{sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.3f}",
+          gates=json.dumps(gates), seconds=f"{time.perf_counter() - t0:.2f}")
+    check(nparams == cell["params"], f"{nparams} parameters")
+    tree = params_to_tree(model)
+    del model
+    restored, coding = checkpoint_drill(tree, cell, tag)
+    del tree
     model = params_from_jax(cfg, restored, dev)
-    del restored, mgr, store
+    del restored
     gc.collect()
+    if not cfg.has_decode:
+        return {**encode_path(cfg, model, cell, seed, tag), **coding}
 
     # 6.4 serve: requests of prompt + gen tokens, `batch` at a time
     B, P, G, REQ = cell["batch"], cell["prompt"], cell["gen"], cell["requests"]
@@ -966,6 +1073,12 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
     flash = {"launches": fak.launches, "fp32_launches": fak.fp32_launches,
              "plain_calls": fak.plain_calls,
              "blockwise_calls": layers.blockwise_calls}
+    # the kernel's launches by mode: causal prefill (self-attention), not
+    # causal at Sq > 1 (cross-attention prefill) and at Sq == 1
+    # (cross-attention decode steps)
+    modes = {"self_prefill": fak.mode_launches.get((True, False), 0),
+             "cross_prefill": fak.mode_launches.get((False, False), 0),
+             "cross_decode": fak.mode_launches.get((False, True), 0)}
     nbatches = math.ceil(REQ / B)
     phase(f"{tag}serve", requests=REQ, batch=B, prompt=P, gen=G,
           seconds=f"{out['seconds']:.3f}",
@@ -974,14 +1087,24 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
           prefill_ms=",".join(f"{t * 1e3:.2f}" for t in out["prefill_s"]),
           decode_ms_per_token=",".join(f"{t * 1e3 / (G - 1):.3f}"
                                        for t in out["decode_s"]),
-          flash=json.dumps(flash))
-    want = nbatches * attn_layers
-    routed = ((want, 0) if cell["attention"] == "kernel" else (0, want))
+          flash=json.dumps(flash), flash_modes=json.dumps(modes))
+    want_modes = {"self_prefill": nbatches * (attn_layers - cross_layers),
+                  "cross_prefill": nbatches * cross_layers,
+                  "cross_decode": nbatches * (G - 1) * cross_layers}
+    want = sum(want_modes.values())
+    routed = {"kernel": (want, 0), "blockwise": (0, want),
+              "none": (0, 0)}[cell["attention"]]
+    check(cell["attention"] != "none" or want == 0, "attention in a cell "
+          "that has none")
     check((flash["launches"], flash["blockwise_calls"]) == routed,
           f"(flash launches, blockwise calls) "
           f"{(flash['launches'], flash['blockwise_calls'])} != {routed}: "
-          f"{nbatches} batches x {attn_layers} attention layers, "
-          f"{cell['attention']}")
+          f"{nbatches} batches x ({attn_layers} attention layers + "
+          f"{G - 1} decode steps x {cross_layers} cross-attention layers),"
+          f" {cell['attention']}")
+    if cell["attention"] == "kernel":
+        check(modes == want_modes, f"flash launches by mode {modes} != "
+              f"{want_modes}")
     check(flash["fp32_launches"] == 0, "fp32 flash kernel on the serve path")
     check(flash["plain_calls"] == 0, "flash plain version on the serve path")
     for toks in out["tokens"]:
@@ -995,15 +1118,20 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
     rng.manual_seed(seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=rng,
                             device=dev)
+    vision = None
+    if cfg.family == "vlm":
+        vision = torch.randn((B, cfg.vision_seq, cfg.d_model), generator=rng,
+                             device=dev).bfloat16()
     NSTEP = 4
 
     def decode_vs_prefill(m):
         """-> (max |decode - prefill| / max |logit|, max |logit|, finite,
         decode logits, cache, the same share per sequence)."""
-        full, _, _ = forward(m, prompts, mode="prefill")
+        full, _, _ = forward(m, prompts, mode="prefill", vision=vision)
         want = full[:, -1].float()
         del full
-        _, cache, _ = forward(m, prompts[:, :P - 1], mode="prefill")
+        _, cache, _ = forward(m, prompts[:, :P - 1], mode="prefill",
+                              vision=vision)
         cache = pad_cache_to(cache, cfg, P + 2 * NSTEP)
         step, _, _ = forward(m, prompts[:, P - 1:], mode="decode",
                              cache=cache, pos=P - 1)
@@ -1089,18 +1217,9 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / NSTEP
     try:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for i in range(NSTEP, 2 * NSTEP):
-                forward(model, tok, mode="decode", cache=cache, pos=P + i)
-            torch.cuda.synchronize()
-        # device-side events only (kernels, copies), as the profiler's own
-        # table totals them: a CPU op's self device time repeats them
-        ops = [(e.key, e.self_device_time_total / 1e3 / NSTEP, e.count)
-               for e in prof.key_averages()
-               if e.device_type != DeviceType.CPU]
+        ops = device_ops(lambda i: forward(model, tok, mode="decode",
+                                           cache=cache, pos=P + NSTEP + i),
+                         NSTEP)
         device_ms = sum(ms for _, ms, _ in ops)
         top = sorted(ops, key=lambda o: -o[1])[:4]
         phase(f"{tag}decode split", step_ms=f"{step_ms:.3f}",
@@ -1114,37 +1233,206 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
     del cache
 
     # 6.7 the flash kernel's share of one prefill, from CUDA events
-    events = []
-    kernel_flash = layers.flash_attention
+    prefill_ms, flash_ms, calls = attention_ms(
+        lambda: forward(model, prompts, mode="prefill", vision=vision))
+    phase(f"{tag}prefill split", prefill_ms=f"{prefill_ms:.3f}",
+          attention=cell["attention"],
+          flash_ms=f"{flash_ms:.3f}", flash_calls=calls,
+          flash_share=f"{flash_ms / max(prefill_ms, 1e-9):.4f}",
+          peak_host_rss_GB=f"{peak_rss_gb():.3f}",
+          peak_device_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    prefill_host_split(model, prompts, vision, tag)
+    return {**flash, **coding, **modes}
 
-    def timed_flash(*args, **kw):
+
+def attention_ms(run) -> tuple[float, float, int]:
+    """`run()` between two CUDA events, each `layers.flash_attention` call
+    in it between two more: (the run's ms, the calls' ms, the calls)."""
+    import torch
+
+    from repro_torch.models import layers
+    events, inner = [], layers.flash_attention
+
+    def timed(*args, **kw):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        y = kernel_flash(*args, **kw)
+        y = inner(*args, **kw)
         e1.record()
         events.append((e0, e1))
         return y
 
-    layers.flash_attention = timed_flash
+    layers.flash_attention = timed
     try:
         p0 = torch.cuda.Event(enable_timing=True)
         p1 = torch.cuda.Event(enable_timing=True)
         p0.record()
-        forward(model, prompts, mode="prefill")
+        run()
         p1.record()
         p1.synchronize()
     finally:
-        layers.flash_attention = kernel_flash
-    prefill_ms = p0.elapsed_time(p1)
-    flash_ms = sum(a.elapsed_time(b) for a, b in events)
-    phase(f"{tag}prefill split", prefill_ms=f"{prefill_ms:.3f}",
-          attention=cell["attention"],
-          flash_ms=f"{flash_ms:.3f}", flash_calls=len(events),
-          flash_share=f"{flash_ms / prefill_ms:.4f}",
-          peak_host_rss_GB=f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9:.3f}",
+        layers.flash_attention = inner
+    return (p0.elapsed_time(p1), sum(a.elapsed_time(b) for a, b in events),
+            len(events))
+
+
+def device_ops(fn, reps: int) -> list[tuple[str, float, int]]:
+    """`fn(i)` for i < reps under torch.profiler: (name, device ms per
+    call, count) of each device-side event (kernels, copies), as the
+    profiler's own table totals them (a CPU op's self device time would
+    repeat them)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(i)
+        torch.cuda.synchronize()
+    return [(e.key, e.self_device_time_total / 1e3 / reps, e.count)
+            for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+
+
+def prefill_host_split(model, prompts, vision, tag: str) -> None:
+    """One prefill's host-clock time beside the device time of another
+    (torch.profiler) and the device's busy share: where the host launches
+    more than the device computes (rwkv's inter-chunk loop, 64 steps a
+    layer at 2,048 tokens), the share says so. The two prefills are two
+    runs, so a device-bound prefill can read a share a little over 1."""
+    import torch
+
+    from repro_torch.models import forward
+
+    def prefill(_=0):
+        forward(model, prompts, mode="prefill", vision=vision)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        ops = device_ops(prefill, 1)
+        device_ms, nops = sum(ms for _, ms, _ in ops), sum(c for *_, c in ops)
+    except RuntimeError as err:         # the profiler is untried there
+        phase(f"{tag}prefill host split", host_ms=f"{host_ms:.3f}",
+              device_ms="not measured", profiler_error=repr(str(err)[:200]))
+        return
+    phase(f"{tag}prefill host split", host_ms=f"{host_ms:.3f}",
+          device_ms=f"{device_ms:.3f}",
+          device_share=f"{device_ms / host_ms:.4f}", device_ops=nops)
+
+
+# phase 17's witness: hubert's full width cut to 2 layers, one sequence
+# of 512 frames, on the card and on the CPU
+ENCODE_WITNESS = dict(layers=2, frames=512)
+
+
+def encode_path(cfg, model, cell: dict, seed: int, tag: str) -> dict:
+    """An encoder-only model's traffic (the reference's `encode` cell: a
+    train-mode forward, here under `torch.inference_mode`): `requests`
+    sequences of `prompt` seeded frame embeddings (bf16), `batch` at a
+    time. Checks the route (one flash launch or blockwise call per
+    attention layer per batch), finite logits of the vocabulary's width,
+    each sequence of the first batch encoded alone against its row of the
+    batch (5e-2 of max |logit|), and a card-vs-CPU witness at the same
+    width cut to 2 layers on 1 x 512 frames (5e-2). Returns the flash
+    kernel's launches, plain calls and blockwise calls of the encode
+    run."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.models import (Segment, forward, init_params, layers,
+                                    params_from_jax, params_to_tree)
+
+    dev = torch.device("cuda")
+    B, S, REQ = cell["batch"], cell["prompt"], cell["requests"]
+    attn_layers, _ = attention_routes(cfg)
+    rng = torch.Generator(device=dev)
+    rng.manual_seed(seed)
+    batches = [torch.randn((min(B, REQ - i), S, cfg.d_model), generator=rng,
+                           device=dev).bfloat16() for i in range(0, REQ, B)]
+    fak.reset_counts()
+    layers.reset_blockwise_calls()
+    times, outs = [], []
+    for x in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits, _, _ = forward(model, x, mode="train")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        outs.append(logits)
+    flash = {"launches": fak.launches, "fp32_launches": fak.fp32_launches,
+             "plain_calls": fak.plain_calls,
+             "blockwise_calls": layers.blockwise_calls}
+    phase(f"{tag}encode", requests=REQ, batch=B, frames=S,
+          seconds=f"{sum(times):.3f}",
+          frames_s=f"{REQ * S / sum(times):.1f}",
+          batch_ms=",".join(f"{t * 1e3:.2f}" for t in times),
+          flash=json.dumps(flash))
+    want = len(batches) * attn_layers
+    routed = ((want, 0) if cell["attention"] == "kernel" else (0, want))
+    check((flash["launches"], flash["blockwise_calls"]) == routed,
+          f"(flash launches, blockwise calls) "
+          f"{(flash['launches'], flash['blockwise_calls'])} != {routed}")
+    check(flash["plain_calls"] == 0 and flash["fp32_launches"] == 0,
+          "flash plain version or fp32 kernel on the encode path")
+    for x, out in zip(batches, outs):
+        check(tuple(out.shape) == (x.shape[0], S, cfg.vocab_size),
+              f"logits {tuple(out.shape)}")
+        check(bool(torch.isfinite(out.float()).all()), "non-finite logits")
+    # each sequence alone is its row of the batch
+    first = outs[0].float()
+    scale = first.abs().max().item()
+    rows = []
+    with torch.inference_mode():
+        for i in range(batches[0].shape[0]):
+            alone, _, _ = forward(model, batches[0][i:i + 1], mode="train")
+            rows.append((alone[0].float() - first[i]).abs().max().item()
+                        / scale)
+    phase(f"{tag}encode rows", alone_vs_batch=json.dumps(
+        [round(r, 5) for r in rows]), bound=0.05, max_abs_logit=f"{scale:.4f}")
+    check(max(rows) < 0.05, f"a sequence alone vs its batch row: {rows}")
+
+    # the attention share of one batch, from CUDA events
+    def encode():
+        with torch.inference_mode():
+            forward(model, batches[0], mode="train")
+    batch_ms, attn_ms, calls = attention_ms(encode)
+    phase(f"{tag}encode split", batch_ms=f"{batch_ms:.3f}",
+          attention=cell["attention"], attention_ms=f"{attn_ms:.3f}",
+          attention_calls=calls,
+          attention_share=f"{attn_ms / batch_ms:.4f}",
+          peak_host_rss_GB=f"{peak_rss_gb():.3f}",
           peak_device_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
-    return {**flash, **coding}
+    del outs, batches
+
+    # the card against the CPU at full width, cut to 2 layers
+    (seg,) = cfg.segments
+    wcfg = dataclasses.replace(
+        cfg, name=f"{cfg.name}-{ENCODE_WITNESS['layers']}l",
+        segments=(Segment(seg.blocks, ENCODE_WITNESS["layers"]),))
+    t0 = time.perf_counter()
+    host = init_params(wcfg, torch.Generator().manual_seed(seed), "cpu")
+    card = params_from_jax(wcfg, params_to_tree(host), dev)
+    x = torch.randn((1, ENCODE_WITNESS["frames"], cfg.d_model),
+                    generator=torch.Generator().manual_seed(seed + 1)
+                    ).bfloat16()
+    with torch.inference_mode():
+        want, _, _ = forward(host, x, mode="train")
+        got, _, _ = forward(card, x.to(dev), mode="train")
+    want = want.float()
+    wscale = want.abs().max().item()
+    rel = (got.cpu().float() - want).abs().max().item() / wscale
+    phase(f"{tag}encode witness", layers=wcfg.num_layers,
+          frames=ENCODE_WITNESS["frames"], card_vs_cpu=f"{rel:.5f}",
+          bound=0.05, seconds=f"{time.perf_counter() - t0:.2f}")
+    check(rel < 0.05, f"encode card vs CPU {rel:.4f} of max |logit|")
+    return flash
+
+
 
 
 # phase 10's settings, from benchmarks/fig_sim_reliability.py: the chain
@@ -1513,6 +1801,11 @@ def vmrss_gb() -> float:
         if line.startswith("VmRSS:"):
             return int(line.split()[1]) * 1024 / 1e9
     raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+def peak_rss_gb() -> float:
+    """This process's peak resident host memory so far, in GB."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
 
 
 def train_path(seed: int) -> dict:
@@ -2140,7 +2433,7 @@ def main() -> None:
                     bound_by=by, bound_share=b / ms)
 
     def flash_case(B, Hq, Hkv, Sq, Skv, d, dtype, causal, window=0,
-                   reps=30, plain_reps=2):
+                   reps=30, plain_reps=2, tols=None):
         q, k, v = (torch.randn(sh, generator=gen, device=dev).to(dtype)
                    for sh in ((B, Hq, Sq, d), (B, Hkv, Skv, d),
                               (B, Hkv, Skv, d)))
@@ -2159,11 +2452,25 @@ def main() -> None:
         dead = torch.isneginf(lse) & torch.isneginf(want_lse)
         lse_err = torch.where(dead, 0.0, (lse - want_lse).abs()).max().item()
         bf16 = dtype == torch.bfloat16
-        tol, lse_tol = (2e-2, 2e-2) if bf16 else (2e-5, 1e-4)
+        tol, lse_tol = tols or ((2e-2, 2e-2) if bf16 else (2e-5, 1e-4))
         shape = (f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} d={d} "
                  f"{dtype} causal={causal} window={window}")
         check(err <= tol and lse_err <= lse_tol,
               f"flash_attention != plain at {shape}: out {err}, lse {lse_err}")
+        tail = {}
+        if tols:
+            # the bounds' witness: keys padded with zeros to the next
+            # 128-key tile, the padding not masked
+            kz, vz = (torch.nn.functional.pad(t, (0, 0, 0, -Skv % 128))
+                      for t in (k, v))
+            bad, bad_lse = fak.flash_attention_fwd_plain(
+                q, kz, vz, causal=causal, window=window)
+            tail = dict(
+                tail_err=(bad.float() - want.float()).abs().max().item(),
+                tail_lse_err=(bad_lse - want_lse).abs().max().item())
+            del kz, vz, bad, bad_lse
+            check(tail["tail_err"] > tol or tail["tail_lse_err"] > lse_tol,
+                  f"the bounds at {shape} pass an unmasked key tail: {tail}")
         mask = None
         if window:
             qp = torch.arange(Sq, device=dev)[:, None]
@@ -2189,14 +2496,16 @@ def main() -> None:
         phase("kernel flash_attention", B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Skv=Skv,
               d=d, dtype=str(dtype).replace("torch.", ""), causal=causal,
               window=window, max_abs_err=f"{err:.3e}",
-              lse_max_abs_err=f"{lse_err:.3e}", ms=f"{ms:.4f}",
+              lse_max_abs_err=f"{lse_err:.3e}", tol_out=tol,
+              tol_lse=lse_tol,
+              **{key: f"{x:.3e}" for key, x in tail.items()}, ms=f"{ms:.4f}",
               plain_ms=f"{pms:.3f}", library_ms=f"{lms:.4f}",
               bound_ms=f"{b:.4f}", bound_by=by,
               bound_share=f"{b / ms:.4f}", vs_library=f"{ms / lms:.3f}",
               TFLOP_s=f"{ops / (ms / 1e3) / 1e12:.1f}")
         return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
                     bound_by=by, bound_share=b / ms, library_ms=lms,
-                    lse_max_abs_err=lse_err)
+                    lse_max_abs_err=lse_err, **tail)
 
     rng = np.random.default_rng(2505)
     # a broken mbarrier ring would hang the card (the gf and flash kernels
@@ -2262,6 +2571,12 @@ def main() -> None:
     flash_case(1, 16, 1, 300, 300, 256, bf16, True, window=40, reps=10)
     flash_case(1, 16, 1, 1024, 3968, 256, bf16, False, reps=10)
     flash_case(2, 16, 1, 1, 1, 256, bf16, True, reps=10)
+    # llama-3.2-vision's cross-attention: not causal, the ragged vision
+    # length 6404 = 50 x 128 + 4, at prefill (Sq 2048) and decode (Sq 1)
+    flash_cross = {
+        f"B=4 Hq=32 Hkv=8 Sq={Sq} Skv=6404 d=128 non-causal": flash_case(
+            4, 32, 8, Sq, 6404, 128, bf16, False, tols=CROSS_TOLS)
+        for Sq in (2048, 1)}
     # the flash layer's gradient: kernel forward, blockwise backward
     flash_grad = flash_grad_check(gen, dev)
     faulthandler.cancel_dump_traceback_later()
@@ -2339,7 +2654,7 @@ def main() -> None:
     t0 = time.perf_counter()
     sim = sim_path()
     phase("sim phase", seconds=f"{time.perf_counter() - t0:.2f}",
-          peak_host_rss_GB=f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9:.3f}")
+          peak_host_rss_GB=f"{peak_rss_gb():.3f}")
 
     # 11. training at full width (8 of 28 layers) with the UniLRC
     # checkpoint drill --------------------------------------------------------
@@ -2348,7 +2663,7 @@ def main() -> None:
     t0 = time.perf_counter()
     train = train_path(2505)
     phase("train phase", seconds=f"{time.perf_counter() - t0:.2f}",
-          peak_host_rss_GB=f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9:.3f}")
+          peak_host_rss_GB=f"{peak_rss_gb():.3f}")
     t0 = time.perf_counter()
     train_witness(2505)
     train_low_lr(2505)
@@ -2384,6 +2699,25 @@ def main() -> None:
     phase("moe phase", seconds=f"{time.perf_counter() - t0:.2f}",
           vmrss_GB=f"{vmrss_gb():.3f}")
 
+    # 15-17. the last three block families at full width: rwkv6-7b (no
+    # attention), llama-3.2-vision-11b (cross-attention through the flash
+    # kernel) and hubert-xlarge (embedding-free, non-causal, encoded) ---
+    new_paths = {}
+    for arch, tag in (("rwkv6-7b", "rwkv "), ("llama-3.2-vision-11b",
+                                              "vision "),
+                      ("hubert-xlarge", "hubert ")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        new_paths[arch] = serve_path(2505, arch, tag=tag)
+        phase(f"{tag}phase", seconds=f"{time.perf_counter() - t0:.2f}",
+              vmrss_GB=f"{vmrss_gb():.3f}",
+              peak_host_rss_GB=f"{peak_rss_gb():.3f}")
+    rwkv_path = new_paths["rwkv6-7b"]
+    vision_path = new_paths["llama-3.2-vision-11b"]
+    hubert_path = new_paths["hubert-xlarge"]
+
     # the example programs -----------------------------------------------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -2395,6 +2729,9 @@ def main() -> None:
                      "serve_recurrentgemma": flash_rg_path["fp32_launches"],
                      "serve_minicpm3": mla_path["fp32_launches"],
                      "serve_phi35moe": moe_path["fp32_launches"],
+                     "serve_rwkv6": rwkv_path["fp32_launches"],
+                     "serve_vision": vision_path["fp32_launches"],
+                     "encode_hubert": hubert_path["fp32_launches"],
                      "example_train": example["fp32_launches"]}
     kernels = [
         dict(name="gf_bitmatmul", kernel="gf_matmul_sm90_kernel",
@@ -2406,7 +2743,10 @@ def main() -> None:
                                "sim": sim["gf_bitmatmul"],
                                "train": train["gf_bitmatmul"],
                                "serve_minicpm3": mla_path["gf_bitmatmul"],
-                               "serve_phi35moe": moe_path["gf_bitmatmul"]},
+                               "serve_phi35moe": moe_path["gf_bitmatmul"],
+                               "serve_rwkv6": rwkv_path["gf_bitmatmul"],
+                               "serve_vision": vision_path["gf_bitmatmul"],
+                               "encode_hubert": hubert_path["gf_bitmatmul"]},
              library_ms=None, **gf_main),
         dict(name="xor_reduce", kernel="xor_fold_kernel", route="cuda",
              source="src/repro_torch/csrc/coding_kernels.cu",
@@ -2417,7 +2757,10 @@ def main() -> None:
                                "sim": sim["xor_reduce"],
                                "train": train["xor_reduce"],
                                "serve_minicpm3": mla_path["xor_reduce"],
-                               "serve_phi35moe": moe_path["xor_reduce"]},
+                               "serve_phi35moe": moe_path["xor_reduce"],
+                               "serve_rwkv6": rwkv_path["xor_reduce"],
+                               "serve_vision": vision_path["xor_reduce"],
+                               "encode_hubert": hubert_path["xor_reduce"]},
              library_ms=None, **xor_main),
         dict(name="flash_attention", kernel="flash_fwd_sm90_kernel",
              route="cuda", source="src/repro_torch/csrc/flash_fwd_sm90.cu",
@@ -2430,9 +2773,21 @@ def main() -> None:
                                - moe_path["fp32_launches"],
                                "serve_minicpm3": mla_path["launches"]
                                - mla_path["fp32_launches"],
+                               "serve_rwkv6": rwkv_path["launches"]
+                               - rwkv_path["fp32_launches"],
+                               "serve_vision": vision_path["launches"]
+                               - vision_path["fp32_launches"],
+                               "encode_hubert": hubert_path["launches"]
+                               - hubert_path["fp32_launches"],
                                "example_train": example["launches"]
                                - example["fp32_launches"]},
-             **flash_main, **flash_grad),
+             **flash_main, **flash_grad,
+             # the row's numbers are the llama prefill shape's; phase 16's
+             # cross-attention shapes, with every key of a row, here
+             cross_shapes={name: dict(r, launches=vision_path[key])
+                           for (name, r), key in zip(
+                               flash_cross.items(),
+                               ("cross_prefill", "cross_decode"))}),
         dict(name="flash_attention_d256", kernel="flash_fwd_sm90_kernel<256>",
              route="cuda", source="src/repro_torch/csrc/flash_fwd_sm90.cu",
              replaces="src/repro/kernels/flash_attention.py:116",

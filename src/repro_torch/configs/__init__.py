@@ -1,9 +1,9 @@
 """Architecture registry of the port: `--arch <id>` resolves here (port of
 `repro.configs`).
 
-Every reference architecture is listed; `get_config` returns the ones
-whose layers the port has, and raises `NotImplementedError` naming the
-ROADMAP item that brings the rest.
+Every reference architecture is listed and built by the port (`PORTED`);
+`_PENDING` is empty: `get_config` raises `NotImplementedError` for an
+architecture listed there, naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -22,17 +22,12 @@ ARCHS = {
     "hubert-xlarge": "hubert_xlarge",
 }
 
-#: Architectures the port can build, and what the others wait for.
+#: Architectures the port builds, and what any other would wait for.
 PORTED = ("llama3.2-3b", "phi4-mini-3.8b", "qwen1.5-32b",
           "recurrentgemma-9b", "minicpm3-4b", "phi3.5-moe-42b-a6.6b",
-          "kimi-k2-1t-a32b")
-_PENDING = {
-    "rwkv6-7b": "its RWKV6 blocks (`rwkv`, ROADMAP A9.3)",
-    "llama-3.2-vision-11b": "its cross-attention blocks (`cross_attn`, "
-                            "ROADMAP A9.4)",
-    "hubert-xlarge": "an encoder-only front end with embedding-free inputs "
-                     "(ROADMAP A9.5)",
-}
+          "kimi-k2-1t-a32b", "rwkv6-7b", "llama-3.2-vision-11b",
+          "hubert-xlarge")
+_PENDING: dict[str, str] = {}
 
 # Paper Table 2 code schemes (used by the EC checkpoint layer)
 CODE_SCHEMES = ("30-of-42", "112-of-136", "180-of-210")

@@ -20,7 +20,8 @@ blocks), so the port's CUDA path has no branch to a plain version.
 
 `flash_attention_fwd` is the wrapper: a CUDA tensor launches one of the
 kernels (and counts it in `launches`, an fp32 one also in
-`fp32_launches`), a CPU tensor takes
+`fp32_launches`, each also in `mode_launches` under (causal, Sq == 1)), a
+CPU tensor takes
 `flash_attention_fwd_plain` (counted in `plain_calls`). There is no
 fallback from one to the other. `block_q` / `block_k` shape only the plain
 version's block loop; the kernels' tiles are fixed by their design.
@@ -46,6 +47,9 @@ _ENTRY = {torch.float32: "repro_flash_fwd_f32",
 launches = 0        # CUDA kernel launches, both kernels
 fp32_launches = 0   # of those, launches of `flash_fwd_f32_sm90_kernel`
 plain_calls = 0     # plain-PyTorch evaluations (CPU tensors)
+#: launches by (causal, Sq == 1): a model's prefills launch Sq > 1, its
+#: decode steps (cross-attention only) Sq == 1
+mode_launches: dict[tuple[bool, bool], int] = {}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -53,6 +57,7 @@ def reset_counts() -> None:
     global launches, fp32_launches, plain_calls
     with _COUNT_LOCK:
         launches = fp32_launches = plain_calls = 0
+        mode_launches.clear()
 
 
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -208,4 +213,6 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         launches += 1
         if q.dtype == torch.float32:
             fp32_launches += 1
+        mode = (bool(causal), Sq == 1)
+        mode_launches[mode] = mode_launches.get(mode, 0) + 1
     return out, lse

@@ -6,6 +6,11 @@ or a checkpoint restored through `ckpt.CheckpointManager`); `run` is the
 command line. Requests are served in batches: each batch is one prefill of
 its prompts and `gen - 1` decode steps against the padded cache.
 
+A `cross_attn` arch (llama-3.2-vision-11b) is served with stub vision
+embeddings, drawn for each batch after its prompts; an encoder-only arch
+(hubert-xlarge) has no decode to serve and exits, as the reference's
+server does.
+
 Usage (`--arch` any of `configs.PORTED`, minicpm3-4b by default; `run`
 serves the SMOKE config, as the reference's server does):
   PYTHONPATH=src python -m repro_torch.launch.serve [--arch minicpm3-4b] \\
@@ -34,10 +39,13 @@ def serve(cfg: ModelConfig, model: Transformer, *, batch: int,
           requests: int, prompt_len: int, gen: int, seed: int,
           device: str | torch.device = "cuda") -> dict:
     """Serve `requests` random prompts of `prompt_len` tokens (drawn from
-    `seed`), `gen` greedy tokens each, `batch` at a time. Returns the
-    generated tokens and host-clock timings: `prefill_s` per batch and
-    `decode_s` per batch (its `gen - 1` steps), each ended by a device
-    synchronise."""
+    `seed`), `gen` greedy tokens each, `batch` at a time. A model with
+    `cross_attn` blocks gets each batch's stub vision input, (B,
+    vision_seq, d_model) bf16 normals from the same generator after the
+    batch's prompts (the reference's `launch/specs.vision_inputs`).
+    Returns the generated tokens and host-clock timings: `prefill_s` per
+    batch and `decode_s` per batch (its `gen - 1` steps), each ended by a
+    device synchronise."""
     device = resolve_device(device)
     if not cfg.has_decode:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
@@ -53,9 +61,14 @@ def serve(cfg: ModelConfig, model: Transformer, *, batch: int,
     for bi, reqs in enumerate(batches):
         prompts = torch.randint(0, cfg.vocab_size, (len(reqs), P),
                                 generator=rng, device=device)
+        vision = None
+        if cfg.family == "vlm":
+            vision = torch.randn((len(reqs), cfg.vision_seq, cfg.d_model),
+                                 generator=rng, device=device).bfloat16()
         _sync(device)
         t0 = time.perf_counter()
-        logits, cache = prefill(model, prompts)
+        logits, cache = prefill(model, prompts, vision)
+        del vision
         cache = pad_cache_to(cache, cfg, S_max=P + G)
         tok = torch.argmax(logits, dim=-1)[:, None]
         _sync(device)

@@ -13,6 +13,11 @@ the paper's operations end to end, as the reference does:
 The reference's mesh (`make_host_mesh`, `shard_state`, `elastic_remesh`,
 `input_sharding`) waits for ROADMAP A10: the state lives on one device.
 
+The data pipeline yields token ids and nothing else, so an arch that needs
+another input exits naming it, where the reference's entry point fails
+inside its step: hubert-xlarge (frame embeddings from a stub front end)
+and llama-3.2-vision-11b (stub vision embeddings beside the tokens).
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \\
       --smoke --steps 50 --ckpt-every 20 --fail-node 3 --fail-at 30 \\
@@ -38,6 +43,19 @@ from repro_torch.train import (TrainConfig, init_train_state,
                                train_state_to_tree)
 
 
+def input_missing(cfg) -> str | None:
+    """What the token pipeline cannot give `cfg`'s train step, or None."""
+    if not cfg.embed_inputs:
+        return (f"its inputs are (B, S, {cfg.d_model}) frame embeddings "
+                f"from a stub front end, and the data pipeline yields "
+                f"token ids")
+    if cfg.family == "vlm":
+        return (f"its cross-attention needs a (B, {cfg.vision_seq}, "
+                f"{cfg.d_model}) vision input, which the data pipeline "
+                f"does not make")
+    return None
+
+
 def run(argv=None) -> list[float]:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-3b")
@@ -61,6 +79,10 @@ def run(argv=None) -> list[float]:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    missing = input_missing(cfg)
+    if missing:
+        raise SystemExit(f"{cfg.name}: this entry point cannot train it: "
+                         f"{missing}")
     device = resolve_device(args.device)
     print(f"arch={cfg.name}  device={device}")
 

@@ -5,7 +5,10 @@ self-attention with ghost-head padding (windowed, with a rotating window
 cache, for `local_attn`), SwiGLU; the `mla` kind's multi-head latent
 attention (absorbed form, latent cache); the `attn_moe` kind's MoE FFN
 (token-choice top-k routing with per-row expert capacity, a Switch
-load-balance loss); and the `rg` kind's Griffin recurrent block (RG-LRU).
+load-balance loss); the `rg` kind's Griffin recurrent block (RG-LRU); the
+`rwkv` kind's RWKV6 time-mix (chunked WKV scan, exact one-step decode) and
+channel-mix; and the `cross_attn` kind's gated cross-attention over stub
+vision embeddings.
 Activations are bf16, statistics (norms, softmax, the router, the
 recurrence) accumulate in fp32, as in the reference. Weights keep the
 reference's layout (`x @ W`, W of shape (in, out)) so that a parameter
@@ -21,7 +24,8 @@ the reference's jnp `_flash_fwd_impl`, on either device. Where autograd
 records the call, the backward is `flash_attention_bwd`, the reference's
 blockwise jnp `_flash_bwd_impl` in PyTorch (the reference has no Pallas
 backward). Decode attends one token against the cache with plain tensor
-ops, as the reference does with einsums.
+ops, as the reference does with einsums; cross-attention decode goes
+through `flash_attention` (Sq = 1, not causal), as the reference's does.
 """
 from __future__ import annotations
 
@@ -119,7 +123,7 @@ def reset_blockwise_calls() -> None:
 
 def _chunk(size: int, target: int = 1024) -> int:
     """The largest divisor of `size` up to `target` (the reference's
-    chunking of the blockwise backward)."""
+    `_chunk`, which picks RWKV's scan chunk)."""
     c = min(size, target)
     while size % c:
         c -= 1
@@ -210,8 +214,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """FlashAttention-2 backward, the reference's `_flash_bwd_impl` in
     PyTorch: p-blocks recomputed from (q, k, lse); an outer loop over kv
     chunks accumulates their dk, dv, an inner loop over q chunks adds each
-    pair's share of dq. Chunks are `_chunk(S, 1024)`. D = rowsum(dO * O)
-    in fp32; p and ds are rounded to the io dtype before their products,
+    pair's share of dq. Chunks are 1024 long with a ragged tail (the
+    reference's `_chunk(S, 1024)` divides S, which at the vision length
+    6404 = 4 x 1601 is 4; the sums do not depend on the chunking).
+    D = rowsum(dO * O) in fp32; p and ds are rounded to the io dtype before their products,
     and every product accumulates in fp32 (its operands are taken to fp32
     first: a product of two bf16 values is exact in fp32, as the
     reference's `preferred_element_type=float32` keeps it). Pairs that
@@ -223,7 +229,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Hkv, Skv, dv_dim = k.shape[1], k.shape[2], v.shape[-1]
     G = Hq // Hkv
     scale = dk_dim ** -0.5
-    qc, kc = _chunk(Sq), _chunk(Skv)
+    qc, kc = min(Sq, 1024), min(Skv, 1024)
     io, f32, dev = q.dtype, torch.float32, q.device
 
     qg = q.reshape(B, Hkv, G, Sq, dk_dim)
@@ -237,8 +243,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ks = k[:, :, k0:k0 + kc].to(f32)
         vs = v[:, :, k0:k0 + kc].to(f32)
         dkj, dvj = dkf[:, :, k0:k0 + kc], dvf[:, :, k0:k0 + kc]
+        nk = min(kc, Skv - k0)
         for q0 in range(0, Sq, qc):
-            mask = _pair_mask(q0, qc, k0, kc, causal, window, dev)
+            mask = _pair_mask(q0, min(qc, Sq - q0), k0, nk, causal, window,
+                              dev)
             if mask is False:
                 continue
             rows = slice(q0, q0 + qc)
@@ -751,3 +759,229 @@ def rg_block(params: RG, x: torch.Tensor, mode: str,
     gate = F.gelu(g.float(), approximate="tanh").to(x.dtype)
     out = h.to(x.dtype) * gate
     return out @ params.w_out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (Finch): time-mix with data-dependent decay, and channel-mix
+# ---------------------------------------------------------------------------
+
+class RWKV(nn.Module):
+    """The RWKV6 time-mix weights: the token-shift mixes `mu` (5, d) for
+    r, k, v, w, g; the projections `w_r`, `w_k`, `w_v`, `w_g`, `w_o` and
+    the decay projection `w_decay` (d, d); the fp32 `decay_base` and
+    `bonus` (d,); the output norm `ln_x` (an RMSNorm over all of d). Built
+    with a generator it is the reference's `init_rwkv`."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None,
+                 device: torch.device | str = "cuda"):
+        super().__init__()
+        d = cfg.d_model
+        dev = gen.device if gen is not None else torch.device(device)
+        s = d ** -0.5
+
+        def weight(*shape, scale):
+            w = (_normal(gen, shape, scale) if gen is not None else
+                 torch.empty(shape, dtype=torch.bfloat16, device=dev))
+            return nn.Parameter(w, requires_grad=False)
+        mu = (torch.rand((5, d), generator=gen, device=dev).bfloat16()
+              if gen is not None else
+              torch.empty((5, d), dtype=torch.bfloat16, device=dev))
+        self.mu = nn.Parameter(mu, requires_grad=False)
+        for name in ("w_r", "w_k", "w_v", "w_g", "w_o"):
+            setattr(self, name, weight(d, d, scale=s))
+        self.w_decay = weight(d, d, scale=s * 0.1)
+        self.decay_base = nn.Parameter(
+            torch.linspace(-6.0, -0.1, d, device=dev), requires_grad=False)
+        bonus = (torch.randn((d,), generator=gen, device=dev) * 0.1
+                 if gen is not None else
+                 torch.empty((d,), dtype=torch.float32, device=dev))
+        self.bonus = nn.Parameter(bonus, requires_grad=False)
+        self.ln_x = nn.Parameter(torch.ones((d,), dtype=torch.bfloat16,
+                                            device=dev), requires_grad=False)
+
+
+def rwkv_chunk_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    w_log: torch.Tensor, u: torch.Tensor, chunk: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked WKV, the reference's `_rwkv_chunk_scan` step for step, in
+    fp32. r, k, v, w_log: (B, S, H, hd), w_log the log decay (<= 0); u:
+    (H, hd) the bonus; S a multiple of `chunk`. Returns y (B, S, H, hd)
+    and the final state (B, H, hd, hd).
+
+    Within a chunk, from inclusive cumulative log decays W: y_i = r_i
+    W_{i-1} (sum_{j<i} k_j / W_j v_j) + (r_i . u k_i) v_i; across chunks
+    a Python loop carries the state S <- diag(W_c) S + sum_j diag(W_c /
+    W_j) k_j v_j. Every exponent is clamped at -60, as the reference
+    clamps it. The einsums must run in full fp32: on the card, TF32
+    matmuls (`torch.backends.cuda.matmul.allow_tf32`) have to be off."""
+    B, S, H, hd = r.shape
+    nc = S // chunk
+    rc, kc, vc, wc = (t.reshape(B, nc, chunk, H, hd).float()
+                      for t in (r, k, v, w_log))
+    cum = torch.cumsum(wc, dim=2)                       # W_i (inclusive)
+    w_total = cum[:, :, -1]                             # (B, nc, H, hd)
+    q_fac = torch.exp(torch.clamp_min(cum - wc, -60.0))   # exclusive
+    k_fac = torch.exp(torch.clamp_min(-cum, -60.0))       # 1 / W_j
+    att = torch.einsum("bnihd,bnjhd->bnhij", rc * q_fac, kc * k_fac)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=r.device).tril(-1)
+    att = torch.where(tri, att, 0.0)                    # strictly lower
+    y = torch.einsum("bnhij,bnjhd->bnihd", att, vc)
+    diag = torch.einsum("bnihd,bnihd->bnih", rc, kc * u)
+    y = y + diag[..., None] * vc                        # bonus diagonal
+
+    state = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    cross = []
+    for n in range(nc):
+        cum_n, w_n, wtot = cum[:, n], wc[:, n], w_total[:, n]
+        r_dec = rc[:, n] * torch.exp(torch.clamp_min(cum_n - w_n, -60.0))
+        cross.append(torch.einsum("bihk,bhkv->bihv", r_dec, state))
+        decay_j = torch.exp(torch.clamp_min(wtot[:, None] - cum_n, -60.0))
+        kv = torch.einsum("bjhk,bjhv->bhkv", kc[:, n] * decay_j, vc[:, n])
+        state = torch.exp(wtot)[..., None] * state + kv
+    y = y + torch.stack(cross, dim=1)
+    return y.reshape(B, S, H, hd), state
+
+
+def rwkv_chunk(S: int) -> int:
+    """The scan's chunk for a sequence of S, the reference's choice: 32,
+    or S below 32, or else the largest divisor of S up to 32 (23 at S =
+    2047)."""
+    return 32 if S % 32 == 0 else (S if S < 32 else _chunk(S, 32))
+
+
+def _shifted(x: torch.Tensor) -> torch.Tensor:
+    """x_{t-1} for every t of x (B, S, D), zero before the first token."""
+    return F.pad(x, (0, 0, 1, 0))[:, :x.shape[1]]
+
+
+def rwkv_block(params: RWKV, x: torch.Tensor, cfg: ModelConfig, mode: str,
+               cache: dict | None) -> tuple[torch.Tensor, dict | None]:
+    """RWKV6 time-mix. x: (B, S, D). Returns (out, new_cache), the cache
+    {"state": (B, H, hd, hd) fp32, "shift": (B, D)} O(1) in the sequence
+    length. Train and prefill run `rwkv_chunk_scan` at `rwkv_chunk(S)`. In
+    decode mode (S = 1) the exact one-step recurrence runs, and the new
+    state and shift are written into `cache` in place (the same tensors
+    come back as the new cache)."""
+    B, S, D = x.shape
+    hd = cfg.rwkv_head_dim
+    H = D // hd
+    x_prev = cache["shift"][:, None] if mode == "decode" else _shifted(x)
+    mu = params.mu
+
+    def mix(i):
+        return x * mu[i] + x_prev * (1 - mu[i])
+    r = (mix(0) @ params.w_r).reshape(B, S, H, hd)
+    k = (mix(1) @ params.w_k).reshape(B, S, H, hd)
+    v = (mix(2) @ params.w_v).reshape(B, S, H, hd)
+    g = mix(4) @ params.w_g
+    # data-dependent log decay (<= 0): -exp(base + proj)
+    w_log = -torch.exp(params.decay_base +
+                       (mix(3) @ params.w_decay).float()).reshape(B, S, H, hd)
+    u = params.bonus.reshape(H, hd)
+
+    if mode == "decode":
+        state = cache["state"]
+        r1, k1, v1 = (t[:, 0].float() for t in (r, k, v))
+        y = torch.einsum("bhk,bhkv->bhv", r1, state) + \
+            (r1 * (u * k1)).sum(-1, keepdim=True) * v1
+        new_state = torch.exp(w_log[:, 0])[..., None] * state + \
+            torch.einsum("bhk,bhv->bhkv", k1, v1)
+        state.copy_(new_state)
+        cache["shift"].copy_(x[:, -1])
+        new_cache = cache
+        y = y.reshape(B, 1, D)
+    else:
+        y, state = rwkv_chunk_scan(r, k, v, w_log, u, rwkv_chunk(S))
+        y = y.reshape(B, S, D)
+        new_cache = ({"state": state, "shift": x[:, -1]}
+                     if mode == "prefill" else None)
+    y = rms_norm(y.to(x.dtype), params.ln_x, cfg.rms_eps)
+    y = y * F.silu(g.float()).to(x.dtype)
+    return y @ params.w_o, new_cache
+
+
+class RWKVChannel(nn.Module):
+    """The RWKV channel-mix weights: the token-shift mix `mu_c` (d,), `w_kc`
+    (d, f) and `w_vc` (f, d). Built with a generator it is the reference's
+    `init_rwkv_channel`."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None,
+                 device: torch.device | str = "cuda"):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        dev = gen.device if gen is not None else torch.device(device)
+        mu = (torch.rand((d,), generator=gen, device=dev).bfloat16()
+              if gen is not None else
+              torch.empty((d,), dtype=torch.bfloat16, device=dev))
+        self.mu_c = nn.Parameter(mu, requires_grad=False)
+        for name, shape in (("w_kc", (d, f)), ("w_vc", (f, d))):
+            w = (_normal(gen, shape, shape[0] ** -0.5) if gen is not None
+                 else torch.empty(shape, dtype=torch.bfloat16, device=dev))
+            setattr(self, name, nn.Parameter(w, requires_grad=False))
+
+
+def rwkv_channel_mix(params: RWKVChannel, x: torch.Tensor, mode: str,
+                     cache: dict | None) -> tuple[torch.Tensor, dict | None]:
+    """relu(lerp(x, x_prev) W_k)^2 W_v. Returns (out, new_cache), the cache
+    {"shift_c": (B, D)}; in decode mode the shift is written into `cache`
+    in place."""
+    x_prev = cache["shift_c"][:, None] if mode == "decode" else _shifted(x)
+    h = x * params.mu_c + x_prev * (1 - params.mu_c)
+    act = torch.relu((h @ params.w_kc).float()).square().to(x.dtype)
+    out = act @ params.w_vc
+    if mode == "decode":
+        cache["shift_c"].copy_(x[:, -1])
+        return out, cache
+    return out, ({"shift_c": x[:, -1]} if mode == "prefill" else None)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (vision, Llama 3.2 Vision style, gated)
+# ---------------------------------------------------------------------------
+
+class CrossAttention(Attention):
+    """`Attention`'s weights (ghost heads included) and the fp32 0-d gates
+    `gate_attn` and `gate_ffn`, zero at init: the reference's
+    `init_cross_attention`."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None,
+                 device: torch.device | str = "cuda"):
+        super().__init__(cfg, gen, device)
+        dev = self.wq.device
+        self.gate_attn = nn.Parameter(torch.zeros((), device=dev),
+                                      requires_grad=False)
+        self.gate_ffn = nn.Parameter(torch.zeros((), device=dev),
+                                     requires_grad=False)
+
+
+def cross_attention_block(params: CrossAttention, x: torch.Tensor,
+                          cfg: ModelConfig, mode: str, cache: dict | None,
+                          vision: torch.Tensor | None
+                          ) -> tuple[torch.Tensor, dict | None]:
+    """Queries from the text stream, keys and values from the stub vision
+    embeddings `vision` (B, Sv, D); no rope, no bias. Train and prefill
+    project k, v from `vision` (prefill returns them as the cache
+    {"k", "v"}: (B, Hkv, Sv, hd)); decode reads them from `cache` and
+    returns it unchanged. Attention is `flash_attention(..., causal=False)`
+    in every mode, decode (Sq = 1) included. Returns (tanh(gate_attn) x
+    out, new_cache)."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    hq, hkv = cfg.num_heads_padded, cfg.num_kv_heads_padded
+    q = (x @ params.wq).reshape(B, S, hq, hd).transpose(1, 2)
+    if mode == "decode" and cache is not None and "k" in cache:
+        k, v = cache["k"], cache["v"]
+        new_cache = cache
+    else:
+        if vision is None:
+            raise ValueError(f"{cfg.name}: cross-attention needs `vision` "
+                             f"(B, {cfg.vision_seq}, {cfg.d_model}) in "
+                             f"{mode} mode")
+        vision = vision.to(params.wk.dtype)     # fp32 weights: promoted
+        k = (vision @ params.wk).reshape(B, -1, hkv, hd).transpose(1, 2)
+        v = (vision @ params.wv).reshape(B, -1, hkv, hd).transpose(1, 2)
+        new_cache = {"k": k, "v": v} if mode != "train" else None
+    out = flash_attention(q, k, v, causal=False)
+    out = out.transpose(1, 2).reshape(B, S, hq * hd) @ params.wo
+    return torch.tanh(params.gate_attn).to(x.dtype) * out, new_cache

@@ -1,21 +1,29 @@
-"""Model assembly of the port (port of `repro.models.model`), for the
-`attn`, `local_attn`, `mla`, `attn_moe` and `rg` block kinds.
+"""Model assembly of the port (port of `repro.models.model`), for every
+block kind: `attn`, `local_attn`, `mla`, `attn_moe`, `rg`, `rwkv` and
+`cross_attn`.
 
 `Transformer` is an `nn.Module` holding one `Block` per block of each
 layer: a segment is `count` layers of one superblock of block kinds (one
-`attn` for llama, one `mla` for minicpm3, one `attn_moe` for phi3.5-moe
-and kimi-k2; `rg, rg, local_attn` for recurrentgemma). The reference
-keeps each segment's layers stacked along a leading `count` axis and scans
-over them; the port keeps a `ModuleList` and loops, and `params_to_tree` /
-`params_from_jax` convert between the two layouts, so a parameter tree
+`attn` for llama and hubert, one `mla` for minicpm3, one `attn_moe` for
+phi3.5-moe and kimi-k2, one `rwkv` for rwkv6; `rg, rg, local_attn` for
+recurrentgemma; four `attn` and a `cross_attn` for llama-3.2-vision). The
+reference keeps each segment's layers stacked along a leading `count` axis
+and scans over them; the port keeps a `ModuleList` and loops, and
+`params_to_tree` / `params_from_jax` convert between the two layouts, so
+a parameter tree
 (and so a checkpoint) has the same bytes in both packages. Caches keep the
 reference's nested layout, one dict per block of the superblock, each leaf
 stacked over the segment's layers: `{"k", "v"}` (count, B, Hkv, S, hd) for
 attention and `attn_moe` (S = min(window, S_max) for `local_attn`),
 `{"ckv"}` (count, B, S, kv_lora) and `{"kr"}` (count, B, S, rope) for
 `mla`, `{"state"}` (count, B, dr) fp32 and `{"conv"}` (count, B, 3, dr)
-for `rg`. `forward`'s aux is the sum of the `attn_moe` blocks'
-load-balance losses (0 without one), as the reference's scan sums them.
+for `rg`, `{"state"}` (count, B, H, hd, hd) fp32, `{"shift", "shift_c"}`
+(count, B, D) for `rwkv`, and the vision keys and values `{"k", "v"}`
+(count, B, Hkv, vision_seq, hd) for `cross_attn`, which never grow.
+`forward`'s aux is the sum of the `attn_moe` blocks' load-balance losses
+(0 without one), as the reference's scan sums them. A config with
+`embed_inputs=False` (hubert's stub front end) has no `embed`: its inputs
+are (B, S, D) embeddings.
 """
 from __future__ import annotations
 
@@ -32,18 +40,6 @@ from repro_torch.device import resolve_device
 from . import layers as L
 from .config import ModelConfig, _rg_width
 
-_PORTED_KINDS = ("attn", "local_attn", "mla", "attn_moe", "rg")
-
-
-def _check_kinds(cfg: ModelConfig) -> None:
-    for seg in cfg.segments:
-        for kind in seg.blocks:
-            if kind not in _PORTED_KINDS:
-                raise NotImplementedError(
-                    f"{cfg.name}: block kind {kind!r} of superblock "
-                    f"{seg.blocks} is not ported yet; the port runs "
-                    f"{_PORTED_KINDS} (ROADMAP A9)")
-
 
 def _norm_scale(cfg: ModelConfig, device) -> nn.Parameter:
     return nn.Parameter(torch.ones((cfg.d_model,), dtype=torch.bfloat16,
@@ -54,8 +50,10 @@ class Block(nn.Module):
     """One pre-norm residual block, the reference's `_block_apply`: a
     mixer, then a feed-forward. The mixer is attention for `attn`,
     `local_attn` (windowed) and `attn_moe`, MLA for `mla`, the recurrent
-    block for `rg`; the feed-forward is the MoE FFN for `attn_moe` and
-    SwiGLU for every other kind."""
+    block for `rg`, the RWKV6 time-mix for `rwkv` and gated
+    cross-attention for `cross_attn`; the feed-forward is the MoE FFN for
+    `attn_moe`, the RWKV channel-mix for `rwkv`, and SwiGLU for every
+    other kind (scaled by tanh(gate_ffn) for `cross_attn`)."""
 
     def __init__(self, kind: str, cfg: ModelConfig,
                  gen: torch.Generator | None, device: torch.device):
@@ -66,22 +64,36 @@ class Block(nn.Module):
             self.rg = L.RG(cfg, gen, device)
         elif kind == "mla":
             self.mla = L.MLA(cfg, gen, device)
+        elif kind == "rwkv":
+            self.rwkv = L.RWKV(cfg, gen, device)
+        elif kind == "cross_attn":
+            self.xattn = L.CrossAttention(cfg, gen, device)
         else:
             self.attn = L.Attention(cfg, gen, device)
         self.norm2 = _norm_scale(cfg, device)
         if kind == "attn_moe":
             self.moe = L.MoE(cfg, gen, device)
+        elif kind == "rwkv":
+            self.cmix = L.RWKVChannel(cfg, gen, device)
         else:
             self.mlp = L.SwiGLU(cfg.d_model, cfg.d_ff, gen, device)
 
-    def forward(self, x, cfg: ModelConfig, mode: str, cache, pos):
+    def forward(self, x, cfg: ModelConfig, mode: str, cache, pos,
+                vision=None):
         """-> (x, new_cache, aux): aux is the MoE load-balance loss of an
-        `attn_moe` block, None for the other kinds."""
+        `attn_moe` block, None for the other kinds. `vision` (B, Sv, D)
+        feeds a `cross_attn` block's keys and values in train and prefill
+        mode; the other kinds ignore it."""
         h = L.rms_norm(x, self.norm1, cfg.rms_eps)
         if self.kind == "rg":
             h, new_cache = L.rg_block(self.rg, h, mode, cache)
         elif self.kind == "mla":
             h, new_cache = L.mla_block(self.mla, h, cfg, mode, cache, pos)
+        elif self.kind == "rwkv":
+            h, new_cache = L.rwkv_block(self.rwkv, h, cfg, mode, cache)
+        elif self.kind == "cross_attn":
+            h, new_cache = L.cross_attention_block(self.xattn, h, cfg, mode,
+                                                   cache, vision)
         else:
             window = cfg.window if self.kind == "local_attn" else 0
             h, new_cache = L.attention_block(self.attn, h, cfg, mode, cache,
@@ -91,25 +103,28 @@ class Block(nn.Module):
         aux = None
         if self.kind == "attn_moe":
             h, aux = L.moe_ffn(self.moe, h, cfg)
+        elif self.kind == "rwkv":
+            # decode writes the channel-mix's shift into the same cache
+            h, c2 = L.rwkv_channel_mix(self.cmix, h, mode, cache)
+            if mode == "prefill":
+                new_cache = {**new_cache, **c2}
         else:
             h = self.mlp(h)
+            if self.kind == "cross_attn":
+                h = torch.tanh(self.xattn.gate_ffn).to(x.dtype) * h
         return x + h, new_cache, aux
 
 
 class Transformer(nn.Module):
-    """Token embedding, `cfg.num_layers` blocks, final norm, (tied)
-    unembedding. Its parameters are frozen (`requires_grad=False`) for
-    serving; `train.init_train_state` and `train.train_state_from_jax`
-    make them trainable."""
+    """Token embedding (none when `cfg.embed_inputs` is False),
+    `cfg.num_layers` blocks, final norm, (tied) unembedding. Its
+    parameters are frozen (`requires_grad=False`) for serving;
+    `train.init_train_state` and `train.train_state_from_jax` make them
+    trainable."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None,
                  device: str | torch.device = "cuda"):
         super().__init__()
-        _check_kinds(cfg)
-        if not cfg.embed_inputs:
-            raise NotImplementedError(
-                f"{cfg.name}: embedding-free inputs are not ported yet "
-                f"(ROADMAP A9)")
         device = torch.device(device)
         if device.type != "meta":           # meta: shapes only, no data
             device = resolve_device(device)
@@ -121,11 +136,12 @@ class Transformer(nn.Module):
             for seg in cfg.segments for _ in range(seg.count)
             for kind in seg.blocks)
         self.final_norm = _norm_scale(cfg, device)
-        shape = (cfg.vocab_size, cfg.d_model)
-        self.embed = nn.Parameter(
-            L._normal(gen, shape, cfg.d_model ** -0.5) if gen is not None
-            else torch.empty(shape, dtype=torch.bfloat16, device=device),
-            requires_grad=False)
+        if cfg.embed_inputs:
+            shape = (cfg.vocab_size, cfg.d_model)
+            self.embed = nn.Parameter(
+                L._normal(gen, shape, cfg.d_model ** -0.5) if gen is not None
+                else torch.empty(shape, dtype=torch.bfloat16, device=device),
+                requires_grad=False)
         if not cfg.tie_embeddings:
             shape = (cfg.d_model, cfg.vocab_size)
             self.unembed = nn.Parameter(
@@ -144,8 +160,13 @@ class Transformer(nn.Module):
                     i += 1
 
     def forward(self, inputs: torch.Tensor, *, mode: str = "train",
-                cache=None, pos: int | None = None, remat: str = "none"):
-        """inputs: (B, S) token ids. Returns (logits, new_cache, aux).
+                cache=None, pos: int | None = None, remat: str = "none",
+                vision: torch.Tensor | None = None):
+        """inputs: (B, S) token ids, or (B, S, D) embeddings (cast to bf16)
+        when `cfg.embed_inputs` is False. vision: (B, vision_seq, D), the
+        stub vision embeddings a `cross_attn` block attends to in train
+        and prefill mode (decode reads their keys and values from the
+        cache). Returns (logits, new_cache, aux).
 
         Prefill and decode run under `torch.inference_mode()`. Train mode
         records autograd where the parameters require grad; `remat="block"`
@@ -162,11 +183,15 @@ class Transformer(nn.Module):
         with (contextlib.nullcontext() if mode == "train"
               else torch.inference_mode()):
             return self._forward(inputs, mode, cache, pos,
-                                 remat == "block" and mode == "train")
+                                 remat == "block" and mode == "train",
+                                 vision)
 
-    def _forward(self, inputs, mode, cache, pos, remat: bool):
+    def _forward(self, inputs, mode, cache, pos, remat: bool, vision):
         cfg = self.cfg
-        x = self.embed[inputs.long()]
+        if cfg.embed_inputs:
+            x = self.embed[inputs.long()]
+        else:           # bf16, as the reference casts; fp32 weights promote
+            x = inputs.to(torch.bfloat16)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         # per segment, per block of the superblock: each layer's new cache
         per_layer: list[list[list[dict]]] = [
@@ -179,7 +204,7 @@ class Transformer(nn.Module):
                 if remat:
                     # no randomness in a block: no RNG state to replay
                     x, aux_l = checkpoint(_superblock, x, blocks, cfg,
-                                          use_reentrant=False,
+                                          vision, use_reentrant=False,
                                           preserve_rng_state=False)
                     if aux_l is not None:
                         aux_total = aux_total + aux_l
@@ -189,7 +214,7 @@ class Transformer(nn.Module):
                     if cache is not None:
                         lc = {name: t[li]
                               for name, t in cache[si][bi].items()}
-                    x, nc, aux_b = block(x, cfg, mode, lc, pos)
+                    x, nc, aux_b = block(x, cfg, mode, lc, pos, vision)
                     if aux_b is not None:
                         aux_total = aux_total + aux_b
                     per_layer[si][bi].append(nc)
@@ -209,12 +234,12 @@ class Transformer(nn.Module):
         return logits, new_cache, aux_total
 
 
-def _superblock(x, blocks, cfg: ModelConfig):
+def _superblock(x, blocks, cfg: ModelConfig, vision):
     """One superblock in train mode: its blocks in order. Returns x and
     the sum of its blocks' aux losses (None without an `attn_moe`)."""
     aux = None
     for block in blocks:
-        x, _, aux_b = block(x, cfg, "train", None, None)
+        x, _, aux_b = block(x, cfg, "train", None, None, vision)
         if aux_b is not None:
             aux = aux_b if aux is None else aux + aux_b
     return x, aux
@@ -222,9 +247,12 @@ def _superblock(x, blocks, cfg: ModelConfig):
 
 def forward(model: Transformer, inputs: torch.Tensor, *,
             mode: str = "train", cache=None, pos: int | None = None,
-            remat: str = "none"):
-    """inputs: (B, S) token ids. Returns (logits, new_cache, aux_loss)."""
-    return model(inputs, mode=mode, cache=cache, pos=pos, remat=remat)
+            remat: str = "none", vision: torch.Tensor | None = None):
+    """inputs: (B, S) token ids, or (B, S, D) embeddings without an
+    embedding table; vision: (B, vision_seq, D) for a `cross_attn` model.
+    Returns (logits, new_cache, aux_loss)."""
+    return model(inputs, mode=mode, cache=cache, pos=pos, remat=remat,
+                 vision=vision)
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +292,15 @@ def _block_cache_spec(kind: str, cfg: ModelConfig, B: int,
         c = cfg.mla
         return {"ckv": ((B, S_max, c.kv_lora_rank), torch.bfloat16),
                 "kr": ((B, S_max, c.qk_rope_head_dim), torch.bfloat16)}
+    if kind == "rwkv":
+        hd_r = cfg.rwkv_head_dim
+        return {"state": ((B, cfg.d_model // hd_r, hd_r, hd_r),
+                          torch.float32),
+                "shift": ((B, cfg.d_model), torch.bfloat16),
+                "shift_c": ((B, cfg.d_model), torch.bfloat16)}
     s = S_max
+    if kind == "cross_attn":
+        s = cfg.vision_seq
     if kind == "local_attn" and cfg.window:
         s = min(cfg.window, S_max)
     return {"k": ((B, hkv, s, hd), torch.bfloat16),
@@ -273,8 +309,9 @@ def _block_cache_spec(kind: str, cfg: ModelConfig, B: int,
 
 def init_cache(cfg: ModelConfig, B: int, S_max: int, *,
                device: str | torch.device = "cuda"):
-    """Zeroed cache in the nested segment layout."""
-    _check_kinds(cfg)
+    """Zeroed cache in the nested segment layout. A `cross_attn` block's
+    vision keys and values are zeros too: decode from such a cache attends
+    to no image; prefill fills them."""
     device = resolve_device(device)
     return tuple(
         tuple({name: torch.zeros((seg.count, *shape), dtype=dtype,
@@ -286,26 +323,35 @@ def init_cache(cfg: ModelConfig, B: int, S_max: int, *,
 
 def pad_cache_to(cache, cfg: ModelConfig, S_max: int):
     """Right-pad a prefill cache's sequence axis to S_max so decode can
-    write into it: the 5-D `k` / `v` leaves of full attention (axis 3) and
-    the 4-D `ckv` / `kr` latent leaves of MLA (axis 2). Window caches (at
-    most `cfg.window` long) and recurrent states are fixed-size and stay
-    as they are, as in the reference."""
-    def pad(name: str, leaf: torch.Tensor) -> torch.Tensor:
-        if name in ("ckv", "kr") and leaf.dim() == 4:
-            s = leaf.shape[2]
-            if s < S_max:
-                return torch.nn.functional.pad(leaf, (0, 0, 0, S_max - s))
+    write into it, by block kind: the `k` / `v` leaves of `attn` and
+    `attn_moe` (and of `local_attn` without a window; axis 3) and the
+    `ckv` / `kr` latent leaves of `mla` (axis 2). Window caches (the
+    window long), recurrent states (`rg`, `rwkv`) and a `cross_attn`
+    block's vision keys and values are fixed-size and stay as they are.
+    (The reference pads by leaf name, vision keys included: decode then
+    attends to zero keys, each unmasked at score 0, which dilutes its
+    softmax; ROADMAP C3.)"""
+    def pad(leaf: torch.Tensor, axis: int) -> torch.Tensor:
+        s = leaf.shape[axis]
+        if s >= S_max:
             return leaf
-        if name not in ("k", "v") or leaf.dim() != 5:
-            return leaf
-        s = leaf.shape[3]
-        if cfg.window and s <= cfg.window:
-            return leaf
-        if s < S_max:
-            return torch.nn.functional.pad(leaf, (0, 0, 0, S_max - s))
-        return leaf
-    return tuple(tuple({name: pad(name, t) for name, t in block.items()}
-                       for block in seg) for seg in cache)
+        widths = (0, 0) * (leaf.dim() - 1 - axis) + (0, S_max - s)
+        return torch.nn.functional.pad(leaf, widths)
+
+    def axis_of(kind: str) -> int | None:
+        if kind in ("attn", "attn_moe") or (kind == "local_attn"
+                                            and not cfg.window):
+            return 3
+        return 2 if kind == "mla" else None
+    out = []
+    for seg, seg_cache in zip(cfg.segments, cache, strict=True):
+        blocks = []
+        for kind, block in zip(seg.blocks, seg_cache, strict=True):
+            axis = axis_of(kind)
+            blocks.append(block if axis is None else
+                          {name: pad(t, axis) for name, t in block.items()})
+        out.append(tuple(blocks))
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -318,22 +364,32 @@ _RG = ("w_x", "w_gate", "conv_w", "conv_b", "w_rg", "w_ig", "lam", "w_out")
 _MLP = ("w_gate", "w_up", "w_down")
 _MLA = ("w_dq", "q_norm", "w_uq", "w_dkv", "kv_norm", "w_uk", "w_uv", "wo")
 _MOE = ("router", "w_gate", "w_up", "w_down")
+_RWKV = ("mu", "w_r", "w_k", "w_v", "w_g", "w_o", "w_decay", "decay_base",
+         "bonus", "ln_x")
+_CMIX = ("mu_c", "w_kc", "w_vc")
+_GATES = ("gate_attn", "gate_ffn")
 
 
 def _block_names(cfg: ModelConfig, kind: str) -> list[tuple[str, ...]]:
     """The path of every leaf of a block of `kind`: its keys in the
     block's tree, which are also its module attributes."""
+    attn = _ATTN + (_BIAS if cfg.qkv_bias else ())
     if kind == "rg":
         mixer = [("rg", n) for n in _RG]
     elif kind == "mla":
         mixer = [("mla", n) for n in _MLA]
+    elif kind == "rwkv":
+        mixer = [("rwkv", n) for n in _RWKV]
+    elif kind == "cross_attn":
+        mixer = [("xattn", n) for n in attn + _GATES]
     else:
-        mixer = [("attn", n) for n in _ATTN + (_BIAS if cfg.qkv_bias
-                                               else ())]
+        mixer = [("attn", n) for n in attn]
     if kind == "attn_moe":
         ffn = [("moe", n) for n in _MOE]
         if cfg.moe.num_shared_experts:
             ffn += [("moe", "shared", n) for n in _MLP]
+    elif kind == "rwkv":
+        ffn = [("cmix", n) for n in _CMIX]
     else:
         ffn = [("mlp", n) for n in _MLP]
     return mixer + ffn + [("norm1",), ("norm2",)]
@@ -341,7 +397,7 @@ def _block_names(cfg: ModelConfig, kind: str) -> list[tuple[str, ...]]:
 
 def params_to_tree(model: Transformer) -> dict:
     """The reference's layout: `{"segments": ((block,),) per segment,
-    "final_norm", "embed"[, "unembed"]}` with each block leaf stacked over
+    "final_norm"[, "embed"][, "unembed"]}` with each block leaf stacked over
     the segment's layers. Tensors stay on the model's device."""
     return tree_of(model, lambda p: p.data)
 
@@ -366,8 +422,9 @@ def tree_of(model: Transformer, value) -> dict:
                 node[path[-1]] = leaf
             trees.append(tree)
         segments.append(tuple(trees))
-    out = {"segments": tuple(segments), "final_norm": value(model.final_norm),
-           "embed": value(model.embed)}
+    out = {"segments": tuple(segments), "final_norm": value(model.final_norm)}
+    if cfg.embed_inputs:
+        out["embed"] = value(model.embed)
     if not cfg.tie_embeddings:
         out["unembed"] = value(model.unembed)
     return out
@@ -398,8 +455,8 @@ def param_leaves(model: Transformer, tree: dict):
                 for li in range(seg.count):
                     yield (_param(blocks[(si, li, bi)], path), stacked[li],
                            path)
-    top = ["final_norm", "embed"] + ([] if cfg.tie_embeddings
-                                     else ["unembed"])
+    top = (["final_norm"] + (["embed"] if cfg.embed_inputs else [])
+           + ([] if cfg.tie_embeddings else ["unembed"]))
     for name in top:
         yield getattr(model, name), _as_tensor(tree[name]), (name,)
 
@@ -423,7 +480,8 @@ def params_from_jax(cfg: ModelConfig, tree: dict,
     layout (`repro.models.init_params`, or a restored checkpoint). Leaves
     may be numpy arrays (bf16 given as fp32 values or uint16 bit views)
     or tensors; each is cast to the parameter's dtype (bf16, or fp32 for
-    the rg blocks' `lam`)."""
+    the rg blocks' `lam`, the routers, rwkv's `decay_base` and `bonus`
+    and the cross-attention gates)."""
     model = Transformer(cfg, None, device)
     for param, leaf, path in param_leaves(model, tree):
         _copy(param.data, leaf, path)

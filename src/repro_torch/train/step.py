@@ -1,9 +1,13 @@
 """Step functions of the port (port of `repro.train.step`): training (loss
 + AdamW) and serving (prefill / decode).
 
-  train_step(state, tokens, labels)       -> (state, metrics)
-  serve_prefill(model, tokens)            -> (logits_last, cache)
-  serve_decode(model, token, cache, pos)  -> (logits, cache)
+  train_step(state, tokens, labels[, vision])      -> (state, metrics)
+  serve_prefill(model, tokens[, vision])           -> (logits_last, cache)
+  serve_decode(model, token, cache, pos[, vision]) -> (logits, cache)
+
+`tokens` are (B, S) token ids, or (B, S, D) embeddings for a config
+without an embedding table (hubert's stub front end); `vision` is the
+(B, vision_seq, D) stub vision input of a `cross_attn` model.
 
 Training, as in the reference:
   * **Microbatching**: with `accum` > 1 the batch is split into `accum`
@@ -94,14 +98,16 @@ class _TokenNLL(torch.autograd.Function):
 
 
 def loss_fn(model: Transformer, tokens: torch.Tensor, labels: torch.Tensor,
-            tcfg: TrainConfig = TrainConfig()):
+            tcfg: TrainConfig = TrainConfig(),
+            vision: torch.Tensor | None = None):
     """-> (loss, (nll, aux)): nll is the token-mean NLL of the fp32
     log-softmax of the train-mode logits, aux the forward's MoE
     load-balance loss (0 without an MoE block), and the loss
     nll + model.cfg.moe.router_aux_weight x aux (the reference's
     `aux_weight`, 0.01 there and in every MoE config), or the nll alone
     without an MoE config."""
-    logits, _, aux = forward(model, tokens, mode="train", remat=tcfg.remat)
+    logits, _, aux = forward(model, tokens, mode="train", remat=tcfg.remat,
+                             vision=vision)
     nll = _TokenNLL.apply(logits.reshape(-1, logits.shape[-1]),
                           labels.reshape(-1).long())
     moe = model.cfg.moe
@@ -111,29 +117,36 @@ def loss_fn(model: Transformer, tokens: torch.Tensor, labels: torch.Tensor,
 
 def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
                     tcfg: TrainConfig = TrainConfig()):
-    """Returns train_step(state, tokens, labels) -> (state, metrics).
+    """Returns train_step(state, tokens, labels, vision=None) -> (state,
+    metrics).
 
-    tokens / labels: (B, S) int tensors or numpy arrays (moved to the
-    model's device). With tcfg.accum > 1, B must be divisible by accum.
+    tokens / labels: (B, S) int tensors or numpy arrays (tokens (B, S, D)
+    embeddings without an embedding table), vision (B, vision_seq, D) or
+    None, all moved to the model's device. With tcfg.accum > 1, B must be
+    divisible by accum, and each microbatch takes its rows of tokens,
+    labels and vision.
     The state is updated in place and returned; metrics are fp32 0-d
     tensors: loss, nll, aux, lr and grad_norm (before clipping)."""
 
-    def grads_of(state: TrainState, tokens, labels):
+    def grads_of(state: TrainState, tokens, labels, vision):
         for p in state.params:
             p.grad = None
-        loss, (nll, aux) = loss_fn(state.model, tokens, labels, tcfg)
+        loss, (nll, aux) = loss_fn(state.model, tokens, labels, tcfg,
+                                   vision)
         loss.backward()
         grads = [p.grad for p in state.params]
         for p in state.params:
             p.grad = None
         return loss.detach(), nll.detach(), aux.detach(), grads
 
-    def train_step(state: TrainState, tokens, labels):
-        dev = state.model.embed.device
+    def train_step(state: TrainState, tokens, labels, vision=None):
+        dev = state.model.final_norm.device
         tokens = torch.as_tensor(tokens, device=dev)
         labels = torch.as_tensor(labels, device=dev)
+        if vision is not None:
+            vision = torch.as_tensor(vision, device=dev)
         if tcfg.accum == 1:
-            loss, nll, aux, grads = grads_of(state, tokens, labels)
+            loss, nll, aux, grads = grads_of(state, tokens, labels, vision)
         else:
             B = tokens.shape[0]
             if B % tcfg.accum:
@@ -146,8 +159,9 @@ def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
                                            device=dev)
             for i in range(tcfg.accum):
                 rows = slice(i * mb, (i + 1) * mb)
-                l_i, n_i, a_i, g_i = grads_of(state, tokens[rows],
-                                              labels[rows])
+                l_i, n_i, a_i, g_i = grads_of(
+                    state, tokens[rows], labels[rows],
+                    None if vision is None else vision[rows])
                 with torch.no_grad():
                     for acc, g in zip(grads, g_i):
                         acc += g.to(torch.float32)
@@ -224,20 +238,23 @@ def _int32(leaf) -> torch.Tensor:
 
 
 def make_serve_prefill(cfg: ModelConfig):
-    """serve_prefill(model, tokens) -> (last-position logits, cache). The
-    cache's sequence capacity equals the prompt length; the server pads it
-    to S_max before decode."""
-    def serve_prefill(model, tokens):
-        logits, cache, _ = forward(model, tokens, mode="prefill")
+    """serve_prefill(model, tokens, vision=None) -> (last-position logits,
+    cache). The cache's sequence capacity equals the prompt length; the
+    server pads it to S_max before decode."""
+    def serve_prefill(model, tokens, vision=None):
+        logits, cache, _ = forward(model, tokens, mode="prefill",
+                                   vision=vision)
         return logits[:, -1], cache
     return serve_prefill
 
 
 def make_serve_decode(cfg: ModelConfig):
-    """serve_decode(model, token, cache, pos) -> (logits, cache): one new
-    token per sequence against a cache filled to `pos`."""
-    def serve_decode(model, token, cache, pos: int):
+    """serve_decode(model, token, cache, pos, vision=None) -> (logits,
+    cache): one new token per sequence against a cache filled to `pos`
+    (a `cross_attn` block reads its vision keys and values from the
+    cache, so `vision` is not needed)."""
+    def serve_decode(model, token, cache, pos: int, vision=None):
         logits, new_cache, _ = forward(model, token, mode="decode",
-                                       cache=cache, pos=pos)
+                                       cache=cache, pos=pos, vision=vision)
         return logits[:, 0], new_cache
     return serve_decode

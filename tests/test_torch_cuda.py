@@ -240,6 +240,30 @@ def test_flash_matches_plain(card, causal, window, B, Hq, Hkv, Sq, Skv, d,
     assert (lse - want_lse)[~dead].abs().max().item() <= lse_tol
 
 
+@pytest.mark.parametrize("Sq", [2048, 1])
+def test_flash_cross_attention_shapes_see_an_unmasked_tail(card, Sq):
+    """llama-3.2-vision's cross-attention: not causal over 6404 = 50 x 128
+    + 4 vision keys, at prefill (Sq = 2048) and decode (Sq = 1). Over
+    6404 keys |out| ~ 0.02, so the bf16 cases' 2e-2 bounds would pass
+    anything: out is held to 2e-3 and lse to 1e-3 (measured on an H100:
+    4.9e-4 and 9.5e-6). The plain version over the keys padded with zeros
+    to the next 128-key tile, the padding not masked, as a kernel that
+    forgot the tail mask would compute, must fail those bounds (lse moves
+    by ~1.2e-2)."""
+    tol, lse_tol = 2e-3, 1e-3
+    q, k, v = (t.to(card) for t in _qkv(Sq, 4, 32, 8, Sq, 6404, 128,
+                                        torch.bfloat16))
+    out, lse = fak.flash_attention_fwd(q, k, v, causal=False)
+    want, want_lse = fak.flash_attention_fwd_plain(q, k, v, causal=False)
+    kz, vz = (torch.nn.functional.pad(t, (0, 0, 0, 124)) for t in (k, v))
+    bad, bad_lse = fak.flash_attention_fwd_plain(q, kz, vz, causal=False)
+    torch.cuda.synchronize()
+    assert (out.float() - want.float()).abs().max().item() <= tol
+    assert (lse - want_lse).abs().max().item() <= lse_tol
+    assert ((bad.float() - want.float()).abs().max().item() > tol
+            or (bad_lse - want_lse).abs().max().item() > lse_tol)
+
+
 @pytest.mark.parametrize("d,dtype,item", [
     (96, torch.bfloat16, "ROADMAP C1"),     # no kernel; the layer routes it
     (384, torch.bfloat16, "ROADMAP C1"),    # a multiple of 128, no kernel
@@ -259,6 +283,23 @@ def test_flash_counts_launches_only_on_the_card(card):
                                         torch.bfloat16))
     fak.flash_attention_fwd(q, k, v)
     assert (fak.launches, fak.fp32_launches, fak.plain_calls) == (1, 0, 0)
+
+
+def test_flash_counts_launches_by_mode(card):
+    """`mode_launches` keys each launch by (causal, Sq == 1): a causal
+    prefill, a cross-attention prefill and a decode step; a CPU call
+    counts in none."""
+    fak.reset_counts()
+    for causal, Sq in ((True, 64), (False, 64), (False, 1), (False, 1)):
+        q, k, v = (t.to(card) for t in _qkv(0, 1, 2, 1, Sq, 64, 64,
+                                            torch.bfloat16))
+        fak.flash_attention_fwd(q, k, v, causal=causal)
+    fak.flash_attention_fwd(*_qkv(0, 1, 2, 1, 8, 8, 64, torch.bfloat16))
+    assert fak.mode_launches == {(True, False): 1, (False, False): 1,
+                                 (False, True): 2}
+    assert (fak.launches, fak.plain_calls) == (4, 1)
+    fak.reset_counts()
+    assert fak.mode_launches == {}
 
 
 def test_fp32_flash_counts_its_own_launches(card):
@@ -685,3 +726,161 @@ def test_train_cli_smoke_on_the_card(card):
     assert len(losses) == 30 and losses[-1] < losses[0]
     assert (fak.launches, fak.plain_calls) == (0, 0)
     assert layers.blockwise_calls == 30 * 2
+
+
+def _vision_smoke(card, seed=0):
+    """llama-vision SMOKE with its gates drawn from U(0.3, 0.9) (at init
+    they are 0 and the cross-attention adds nothing) on the CPU and the
+    same weights on the card."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("llama-3.2-vision-11b", smoke=True)
+    host = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    rng = np.random.default_rng(seed)
+    for block in host.blocks:
+        if block.kind == "cross_attn":
+            block.xattn.gate_attn.fill_(rng.uniform(0.3, 0.9))
+            block.xattn.gate_ffn.fill_(rng.uniform(0.3, 0.9))
+    return cfg, host, params_from_jax(cfg, params_to_tree(host), card)
+
+
+def test_rwkv_scan_on_the_card_matches_the_cpu(card, monkeypatch):
+    """The chunked WKV scan in fp32 on the card against the CPU, TF32
+    off (a TF32 einsum would round each product to 10 mantissa bits):
+    1e-5 of max |y| and max |state|, at the serve chunk (32) and a ragged
+    one (23, S = 2047)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    for S in (64, 2047):
+        rng = np.random.default_rng(S)
+        r, k, v = (torch.from_numpy(rng.normal(size=(2, S, 4, 64))
+                                    .astype(np.float32)) for _ in range(3))
+        w_log = -torch.from_numpy(np.exp(rng.normal(size=(2, S, 4, 64))
+                                         - 1.0).astype(np.float32))
+        u = torch.from_numpy(rng.normal(size=(4, 64)).astype(np.float32))
+        chunk = layers.rwkv_chunk(S)
+        want = layers.rwkv_chunk_scan(r, k, v, w_log, u, chunk)
+        got = layers.rwkv_chunk_scan(*(t.to(card) for t in
+                                       (r, k, v, w_log, u)), chunk)
+        for a, b in zip(want, got):
+            assert b.device.type == "cuda" and b.dtype == torch.float32
+            assert (b.cpu() - a).abs().max().item() <= \
+                1e-5 * a.abs().max().item()
+
+
+def test_rwkv_smoke_on_the_card_matches_the_cpu(card, monkeypatch):
+    """rwkv6 SMOKE on the card against the same weights on the CPU, TF32
+    off: train logits over 40 tokens, a prefill of 30 and 10 decode steps
+    (the one-step recurrence writing the cache in place), within 5e-2 of
+    max |logit|; no attention on either."""
+    from repro_torch.configs import get_config
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_config("rwkv6-7b", smoke=True)
+    host = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    dev = params_from_jax(cfg, params_to_tree(host), card)
+    tokens = torch.from_numpy(
+        np.random.default_rng(1).integers(0, 512, (2, 40)))
+    fak.reset_counts()
+    layers.reset_blockwise_calls()
+    got, _, _ = forward(dev, tokens.to(card), mode="train")
+    want, _, _ = forward(host, tokens, mode="train")
+    assert (fak.launches, fak.plain_calls, layers.blockwise_calls) == (0, 0, 0)
+    scale = want.float().abs().max().item()
+    assert (got.cpu().float() - want.float()).abs().max().item() < 5e-2 * scale
+    _, cache, _ = forward(dev, tokens[:, :30].to(card), mode="prefill")
+    assert cache[0][0]["state"].device.type == "cuda"
+    for i in range(30, 40):
+        step, cache, _ = forward(dev, tokens[:, i:i + 1].to(card),
+                                 mode="decode", cache=cache, pos=i)
+        assert (step[:, 0].cpu().float() - want[:, i].float()).abs().max() \
+            .item() < 5e-2 * scale
+
+
+def test_vision_smoke_on_the_card_matches_the_cpu(card):
+    """llama-vision SMOKE, gates open, on the card against the CPU: train
+    logits with a stub vision input, a prefill of 20 and 4 decode steps
+    (the vision keys and values read from the cache, unpadded), within
+    5e-2 of max |logit|; head dim 16 attends blockwise on both."""
+    cfg, host, dev = _vision_smoke(card)
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(0, 512, (2, 24)))
+    vision = torch.from_numpy(rng.normal(size=(2, cfg.vision_seq,
+                                               cfg.d_model))).bfloat16()
+    got, _, _ = forward(dev, tokens.to(card), mode="train",
+                        vision=vision.to(card))
+    want, _, _ = forward(host, tokens, mode="train", vision=vision)
+    scale = want.float().abs().max().item()
+    assert (got.cpu().float() - want.float()).abs().max().item() < 5e-2 * scale
+    _, cache, _ = forward(dev, tokens[:, :20].to(card), mode="prefill",
+                          vision=vision.to(card))
+    cache = pad_cache_to(cache, cfg, 24)
+    assert cache[0][4]["k"].shape[3] == cfg.vision_seq
+    for i in range(20, 24):
+        step, cache, _ = forward(dev, tokens[:, i:i + 1].to(card),
+                                 mode="decode", cache=cache, pos=i)
+        assert (step[:, 0].cpu().float() - want[:, i].float()).abs().max() \
+            .item() < 5e-2 * scale
+
+
+def test_vision_cross_attention_at_head_dim_128_launches_the_kernel(card):
+    """At head dim 128 the cross-attention layer launches the bf16 flash
+    kernel, not causal, at prefill (Sq = S, Skv = vision_seq) and at
+    decode (Sq = 1): one launch per call, and the card's logits are the
+    CPU's (the kernel's plain version there) within 5e-2."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("llama-3.2-vision-11b", smoke=True),
+                              name="llama-vision-hd128", head_dim=128,
+                              vision_seq=300)
+    host = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    for block in host.blocks:
+        if block.kind == "cross_attn":
+            block.xattn.gate_attn.fill_(0.6)
+            block.xattn.gate_ffn.fill_(0.4)
+    dev = params_from_jax(cfg, params_to_tree(host), card)
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(0, 512, (2, 40)))
+    vision = torch.from_numpy(rng.normal(size=(2, 300, cfg.d_model))
+                              ).bfloat16()
+    want, _, _ = forward(host, tokens, mode="prefill", vision=vision)
+    fak.reset_counts()
+    _, cache, _ = forward(dev, tokens[:, :39].to(card), mode="prefill",
+                          vision=vision.to(card))
+    assert (fak.launches, fak.plain_calls) == (5, 0)
+    step, _, _ = forward(dev, tokens[:, 39:].to(card), mode="decode",
+                         cache=pad_cache_to(cache, cfg, 44), pos=39)
+    assert (fak.launches, fak.plain_calls) == (6, 0)
+    scale = want.float().abs().max().item()
+    assert (step[:, 0].cpu().float() - want[:, -1].float()).abs().max() \
+        .item() < 5e-2 * scale
+
+
+def test_hubert_smoke_on_the_card_matches_the_cpu(card):
+    """hubert SMOKE (frame embeddings, not causal) encoded on the card
+    against the CPU within 5e-2 of max |logit|, blockwise at head dim 16;
+    its SMOKE train step runs on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+
+    cfg = get_config("hubert-xlarge", smoke=True)
+    host = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    dev = params_from_jax(cfg, params_to_tree(host), card)
+    frames = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(2, 64, cfg.d_model)).astype(np.float32))
+    layers.reset_blockwise_calls()
+    got, _, _ = forward(dev, frames.to(card))
+    want, _, _ = forward(host, frames)
+    assert layers.blockwise_calls == 2 * cfg.num_layers
+    scale = want.float().abs().max().item()
+    assert (got.cpu().float() - want.float()).abs().max().item() < 5e-2 * scale
+    state = init_train_state(cfg, torch.Generator(card).manual_seed(0), card)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1),
+                           TrainConfig(accum=2, remat="block"))
+    labels = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 64)))
+    state, metrics = step(state, frames, labels)
+    assert bool(torch.isfinite(metrics["loss"])) and int(state.step) == 1

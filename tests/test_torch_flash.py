@@ -41,6 +41,15 @@ def _inputs(B, Hq, Hkv, Sq, Skv, dk, dv, dtype, seed=0):
     return ref, port
 
 
+def test_plain_calls_count_in_no_launch_mode():
+    """`mode_launches` counts kernel launches only: a CPU call, here a
+    decode-shaped one (Sq = 1, not causal), adds to `plain_calls`."""
+    fak.reset_counts()
+    fak.flash_attention_fwd(*(torch.randn(1, 2, S, 64) for S in (1, 8, 8)),
+                            causal=False)
+    assert (fak.mode_launches, fak.launches, fak.plain_calls) == ({}, 0, 1)
+
+
 @pytest.mark.parametrize(
     "causal,window,B,Hq,Hkv,Sq,Skv,dk,dv,bq,bk,dtype", FLASH_CASES)
 def test_plain_matches_pallas_interpret(causal, window, B, Hq, Hkv, Sq, Skv,

@@ -14,6 +14,11 @@ recurrentgemma SMOKE (rg, rg, local_attn, rg, rg; window 8) 0.0320 and
 kernel's wrapper (its plain version on the CPU), as the reference hands
 it its Pallas kernel on a TPU. phi4-mini SMOKE has llama SMOKE's shapes
 (0.0124 and 0.0100); qwen1.5 SMOKE, with its qkv bias, 0.0101 and 0.0112.
+rwkv6 SMOKE (two `rwkv` layers, no attention) and llama-vision SMOKE (4
+`attn` + 1 `cross_attn`, its gates set non-zero, a stub vision input) run
+the same tests; the vision model's decode is compared with the reference's
+on a cache padded without the reference's fault C3 (its vision keys and
+values keep their length, `tests/test_torch_xattn.py`).
 """
 import dataclasses
 
@@ -64,12 +69,33 @@ PAIRS = {
     "recurrentgemma_head_dim_256": (0, "recurrentgemma-9b",
                                     {"name": "recurrentgemma-hd256",
                                      "head_dim": 256}),
+    "rwkv6_smoke": (0, "rwkv6-7b", {}),
+    "vision_smoke": (0, "llama-3.2-vision-11b", {}),
 }
 
 
 def _attention_layers(cfg) -> int:
-    return sum(seg.count * sum(kind != "rg" for kind in seg.blocks)
+    return sum(seg.count * sum(kind not in ("rg", "rwkv")
+                               for kind in seg.blocks)
                for seg in cfg.segments)
+
+
+def _gated(params, seed):
+    """`params` with every cross-attention gate drawn from U(0.3, 0.9): at
+    init they are 0 and the block adds nothing."""
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map_with_path(
+        lambda p, a: (jnp.asarray(rng.uniform(0.3, 0.9, a.shape), jnp.float32)
+                      if "gate_" in jax.tree_util.keystr(p) else a), params)
+
+
+def _ref_pad(rc, ref_cfg, S_max):
+    """The reference's `pad_cache_to` without its fault C3: `cross_attn`
+    blocks keep their vision keys and values unpadded."""
+    padded = ref_pad_cache_to(rc, ref_cfg, S_max)
+    return tuple(tuple(old if kind == "cross_attn" else new
+                       for kind, old, new in zip(seg.blocks, rs, ps))
+                 for seg, rs, ps in zip(ref_cfg.segments, rc, padded))
 
 
 def _tree_numpy(params):
@@ -83,10 +109,17 @@ def _tree_numpy(params):
 def pair(request):
     pad, arch, changes = PAIRS[request.param]
     ref_cfg, cfg = _configs(pad, arch, **changes)
-    params = ref_init_params(ref_cfg, jax.random.PRNGKey(0))
+    params = _gated(ref_init_params(ref_cfg, jax.random.PRNGKey(0)), 0)
     model = params_from_jax(cfg, _tree_numpy(params), "cpu")
-    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, S))
-    return ref_cfg, cfg, params, model, tokens
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (2, S))
+    vision = (None, None)
+    if cfg.family == "vlm":
+        ref = jnp.asarray(rng.normal(size=(2, cfg.vision_seq, cfg.d_model)),
+                          jnp.bfloat16)
+        vision = (ref, torch.from_numpy(np.array(ref.astype(jnp.float32)))
+                  .bfloat16())
+    return ref_cfg, cfg, params, model, tokens, vision
 
 
 def _rel(a, b) -> float:
@@ -96,12 +129,13 @@ def _rel(a, b) -> float:
 
 
 def test_train_logits_match(pair):
-    ref_cfg, _, params, model, tokens = pair
+    ref_cfg, _, params, model, tokens, (vis, tvis) = pair
     want, _, _ = ref_forward(params, jnp.asarray(tokens, jnp.int32), ref_cfg,
-                             mode="train")
+                             mode="train", vision=vis)
     fak.reset_counts()
     layers.reset_blockwise_calls()
-    got, cache, aux = forward(model, torch.from_numpy(tokens), mode="train")
+    got, cache, aux = forward(model, torch.from_numpy(tokens), mode="train",
+                              vision=tvis)
     assert cache is None and float(aux) == 0.0
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     assert _rel(want, got) < TOL
@@ -116,16 +150,18 @@ def test_train_logits_match(pair):
 
 
 def test_prefill_and_decode_logits_match(pair):
-    ref_cfg, cfg, params, model, tokens = pair
+    ref_cfg, cfg, params, model, tokens, (vis, tvis) = pair
     x = jnp.asarray(tokens, jnp.int32)
-    want_p, rc, _ = ref_forward(params, x[:, :S - 1], ref_cfg, mode="prefill")
-    rc = ref_pad_cache_to(rc, ref_cfg, S + 4)
+    want_p, rc, _ = ref_forward(params, x[:, :S - 1], ref_cfg, mode="prefill",
+                                vision=vis)
+    rc = _ref_pad(rc, ref_cfg, S + 4)
     want_d, _, _ = ref_forward(params, x[:, S - 1:], ref_cfg, mode="decode",
-                               cache=rc, pos=jnp.int32(S - 1))
+                               cache=rc, pos=jnp.int32(S - 1), vision=vis)
     t = torch.from_numpy(tokens)
-    got_p, cache, _ = forward(model, t[:, :S - 1], mode="prefill")
+    got_p, cache, _ = forward(model, t[:, :S - 1], mode="prefill",
+                              vision=tvis)
     assert _rel(want_p, got_p) < TOL
-    if not ref_cfg.window:
+    if not ref_cfg.window and "k" in cache[0][0]:
         k = cache[0][0]["k"]
         assert k.shape == rc[0][0]["k"].shape[:3] + (S - 1,) + k.shape[4:]
     cache = pad_cache_to(cache, cfg, S + 4)
@@ -142,27 +178,36 @@ def test_prefill_and_decode_logits_match(pair):
     assert cache2 is cache                        # written in place
     assert _rel(want_d, got_d) < TOL
     # the port's own decode against its train logits, as test_archs does
-    got_t, _, _ = forward(model, t, mode="train")
+    got_t, _, _ = forward(model, t, mode="train", vision=tvis)
     assert _rel(got_t[:, -1].float().numpy(), got_d[:, 0]) < TOL
 
 
 def test_decode_from_a_zeroed_cache_matches_prefill(pair):
     """Token by token from a zeroed cache, then one prefill: the last
     logits agree. With a window (recurrentgemma: 8) the decode runs all
-    S = 24 tokens, three times past the window."""
-    _, cfg, _, model, tokens = pair
+    S = 24 tokens, three times past the window. A vision model's decode
+    reads the image's keys and values from the cache, which only a
+    prefill fills: they are copied in from one first."""
+    _, cfg, _, model, tokens, (_, tvis) = pair
     n, cap = (S, S) if cfg.window else (6, 8)
     t = torch.from_numpy(tokens[:, :n])
     cache = init_cache(cfg, 2, cap, device="cpu")
+    if tvis is not None:
+        _, filled, _ = forward(model, t[:, :1], mode="prefill", vision=tvis)
+        for seg, blocks, new in zip(cfg.segments, cache, filled):
+            for kind, block, nb in zip(seg.blocks, blocks, new):
+                if kind == "cross_attn":
+                    for name in block:
+                        block[name].copy_(nb[name])
     for i in range(n):
         logits, cache, _ = forward(model, t[:, i:i + 1], mode="decode",
                                    cache=cache, pos=i)
-    want, _, _ = forward(model, t, mode="prefill")
+    want, _, _ = forward(model, t, mode="prefill", vision=tvis)
     assert _rel(want[:, -1].float().numpy(), logits[:, 0]) < TOL
 
 
 def test_tree_round_trip_is_byte_exact(pair):
-    _, _, params, model, _ = pair
+    _, _, params, model, _, _ = pair
     want = jax.tree_util.tree_leaves_with_path(_tree_numpy(params))
     got = jax.tree_util.tree_leaves_with_path(params_to_tree(model))
     assert [p for p, _ in want] == [p for p, _ in got]
@@ -170,7 +215,8 @@ def test_tree_round_trip_is_byte_exact(pair):
         if a.dtype == np.uint16:                        # bf16 bit views
             assert b.dtype == torch.bfloat16, path
             b = b.view(torch.int16).numpy().view(np.uint16)
-        else:                                           # rg's fp32 `lam`
+        else:                   # fp32: rg's `lam`, rwkv's decay and bonus,
+            # the cross-attention gates
             assert b.dtype == torch.float32 and a.dtype == np.float32, path
             b = b.numpy()
         assert np.array_equal(a, b), path
@@ -235,7 +281,8 @@ def test_full_width_leaf_shapes_match_reference(arch, physical, nbytes,
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "recurrentgemma-9b",
                                   "phi4-mini-3.8b", "qwen1.5-32b",
                                   "minicpm3-4b", "phi3.5-moe-42b-a6.6b",
-                                  "kimi-k2-1t-a32b"])
+                                  "kimi-k2-1t-a32b", "rwkv6-7b",
+                                  "llama-3.2-vision-11b", "hubert-xlarge"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_are_the_reference_configs(smoke, arch):
     want = ref_get_config(arch, smoke=smoke)
@@ -245,15 +292,14 @@ def test_configs_are_the_reference_configs(smoke, arch):
 
 
 def test_unported_archs_raise_naming_the_roadmap():
+    """Every reference arch is ported now (ROADMAP A9 is done): none
+    raises, and an unknown name still does."""
     assert len(all_archs()) == 10
-    assert set(PORTED) == {"llama3.2-3b", "recurrentgemma-9b",
-                           "phi4-mini-3.8b", "qwen1.5-32b", "minicpm3-4b",
-                           "phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b"}
+    assert set(PORTED) == set(all_archs())
     for arch in all_archs():
-        if arch in PORTED:
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            get_config(arch)
+        assert get_config(arch).name == ref_get_config(arch).name
+        assert get_config(arch, smoke=True).name == \
+            ref_get_config(arch, smoke=True).name
     with pytest.raises(KeyError):
         get_config("gpt-2")
 

@@ -43,6 +43,16 @@ Tolerances, with the error measured when this file was written:
 - five train steps: the reference's loss trajectory within 1e-2
   (measured 1.0e-3 to 3.6e-3; phi3.5-moe, aux included, 3.8e-4 to
   6.4e-3).
+
+rwkv6 SMOKE and llama-vision SMOKE (its cross-attention gates set to
+seeded non-zero values first: at init they are 0, and wq, wk, wv, wo and
+the MLP of the `cross_attn` block would get zero gradients, so the test
+would compare zeros) with a stub vision input take the same gradient and
+trajectory tests and bounds; hubert SMOKE, on frame embeddings (no
+embedding table, not causal), takes the trajectory test. Its gradients
+are held in `tests/test_torch_encoder.py`: the reference cannot run it
+with fp32 leaves (its scan carries the bf16 input embeddings into fp32
+blocks and rejects the dtype change).
 """
 import dataclasses
 
@@ -71,6 +81,7 @@ from repro.optim import compress_grads as ref_compress
 from repro.optim import cosine_lr as ref_cosine_lr
 from repro.topo import Topology as RefTopology
 from repro.train import TrainConfig as RefTrainConfig
+from repro.train import TrainState as RefTrainState
 from repro.train import init_train_state as ref_init_train_state
 from repro.train import loss_fn as ref_loss_fn
 from repro.train import make_train_step as ref_make_train_step
@@ -412,11 +423,18 @@ CONFIGS = {
     "recurrentgemma": ("recurrentgemma-9b", {}),
     "minicpm3": ("minicpm3-4b", {}),                   # mla
     "phi35_moe": ("phi3.5-moe-42b-a6.6b", {}),         # attn_moe, aux
+    "rwkv": ("rwkv6-7b", {}),                          # rwkv
+    "vision": ("llama-3.2-vision-11b", {}),            # cross_attn
 }
 
 
+# configs of the trajectory test alone: the reference cannot take hubert
+# with fp32 leaves, which the gradient fixture needs
+STEP_ONLY = {"hubert": ("hubert-xlarge", {})}           # frame embeddings
+
+
 def _configs(name):
-    arch, changes = CONFIGS[name]
+    arch, changes = {**CONFIGS, **STEP_ONLY}[name]
     ref, port = ref_get_config(arch, smoke=True), get_config(arch, smoke=True)
     if changes:
         ref = dataclasses.replace(ref, **changes)
@@ -424,28 +442,70 @@ def _configs(name):
     return ref, port
 
 
+def _ref_state(ref_cfg):
+    """The reference's initial train state; a vision model's gates drawn
+    from U(0.3, 0.9) (seeded), its optimizer state made from them."""
+    state = ref_init_train_state(ref_cfg, jax.random.PRNGKey(0))
+    if ref_cfg.family != "vlm":
+        return state
+    rng = np.random.default_rng(0)
+    params = jax.tree_util.tree_map_with_path(
+        lambda p, a: (jnp.asarray(rng.uniform(0.3, 0.9, a.shape), jnp.float32)
+                      if "gate_" in jax.tree_util.keystr(p) else a),
+        state.params)
+    return RefTrainState(params=params, opt=ref_adamw_init(params),
+                         step=state.step)
+
+
+def _batch(ref_cfg, ds, i):
+    """(tokens, labels, vision) of step i: the pipeline's batch, its
+    tokens replaced by seeded frame embeddings for an embedding-free
+    config, and a seeded bf16 vision input (numpy fp32 of bf16 values)
+    for a vision config, else None."""
+    tokens, labels = ds.batch(i)
+    rng = np.random.default_rng(1000 + i)
+    B, S = tokens.shape
+    if not ref_cfg.embed_inputs:
+        tokens = rng.normal(size=(B, S, ref_cfg.d_model)).astype(np.float32)
+    vision = None
+    if ref_cfg.family == "vlm":
+        vision = _np(jnp.asarray(rng.normal(
+            size=(B, ref_cfg.vision_seq, ref_cfg.d_model)), jnp.bfloat16))
+    return tokens, labels, vision
+
+
+def _vis(vision, ref: bool):
+    """A vision batch for the reference (a bf16 array) or the port (a
+    bf16 tensor), or None."""
+    if vision is None:
+        return None
+    return (jnp.asarray(vision, jnp.bfloat16) if ref else
+            torch.from_numpy(vision).bfloat16())
+
+
 @pytest.fixture(scope="module", params=list(CONFIGS))
 def grads(request):
     """Both packages' loss and grads on one pipeline batch (B=2, S=32),
     in bf16 as trained and with every leaf in fp32."""
     ref_cfg, cfg = _configs(request.param)
-    state = ref_init_train_state(ref_cfg, jax.random.PRNGKey(0))
-    tokens, labels = RefDataset(RefDataConfig(ref_cfg.vocab_size, 32,
-                                              2)).batch(0)
+    state = _ref_state(ref_cfg)
+    tokens, labels, vision = _batch(
+        ref_cfg, RefDataset(RefDataConfig(ref_cfg.vocab_size, 32, 2)), 0)
     out = {"name": request.param}
     for prec in ("bf16", "fp32"):
         params = state.params if prec == "bf16" else jax.tree_util.tree_map(
             lambda a: a.astype(jnp.float32), state.params)
         (loss, (nll, aux)), g = jax.value_and_grad(ref_loss_fn, has_aux=True)(
             params, jnp.asarray(tokens), jnp.asarray(labels), ref_cfg,
-            RefTrainConfig())
+            RefTrainConfig(), _vis(vision, True))
         port = train_state_from_jax(
             cfg, _host((state.params, state.opt, state.step)), "cpu")
         if prec == "fp32":
             port.model.float()
         got, (got_nll, got_aux) = loss_fn(port.model,
                                           torch.from_numpy(tokens),
-                                          torch.from_numpy(labels))
+                                          torch.from_numpy(labels),
+                                          vision=_vis(vision, False))
         got.backward()
         out[prec] = dict(
             loss=float(loss), got=float(got.detach()),
@@ -477,12 +537,18 @@ def test_loss_and_grads_match_reference_in_bf16(grads):
     else:
         assert r["aux"] == r["ref_aux"] == 0.0
     tol = 5e-2 if grads["name"] == "recurrentgemma" else 2e-2
+    if grads["name"] == "vision":         # the gates open the cross block
+        nonzero = [jax.tree_util.keystr(p) for p, a in r["want"]
+                   if "xattn" in jax.tree_util.keystr(p)
+                   and float(np.abs(_np(a)).max()) > 0]
+        assert len(nonzero) == 6, nonzero   # wq, wk, wv, wo and both gates
     names = set()
     for (path, a), (_, b), (_, c) in zip(r["want"], r["port"], r32["want"]):
         name = jax.tree_util.keystr(path)
         names.add(name.split("[")[-1])
-        assert b.dtype == torch.bfloat16 or "lam" in name or \
-            "router" in name, name
+        # bf16, or fp32 where the leaf is (rg's `lam`, the routers,
+        # rwkv's decay and bonus, the gates): the reference's dtype
+        assert str(b.dtype).replace("torch.", "") == str(a.dtype), name
         # the reference's own bf16 error; for phi3.5-moe it reaches 0.24
         # (routing), so its leaves are held only loosely here: the fp32
         # test is the check of its gradients
@@ -526,10 +592,14 @@ def _run(step_fn, ds, state, lo, hi):
 
 
 @pytest.mark.parametrize("name,accum", [("llama", 1), ("llama", 2),
-                                        ("qwen", 1), ("phi35_moe", 1)])
+                                        ("qwen", 1), ("phi35_moe", 1),
+                                        ("rwkv", 1), ("vision", 2),
+                                        ("hubert", 1)])
 def test_train_steps_follow_the_reference(name, accum):
+    """Five steps from the reference's state; with accum 2 the vision rows
+    are split per microbatch in both packages."""
     ref_cfg, cfg = _configs(name)
-    state = ref_init_train_state(ref_cfg, jax.random.PRNGKey(0))
+    state = _ref_state(ref_cfg)
     port = train_state_from_jax(cfg, _host((state.params, state.opt,
                                             state.step)), "cpu")
     kw = dict(lr=1e-3, warmup_steps=2, total_steps=10, clip_norm=1.0)
@@ -538,10 +608,12 @@ def test_train_steps_follow_the_reference(name, accum):
     step = make_train_step(cfg, AdamWConfig(**kw), TrainConfig(accum=accum))
     ds = SyntheticTokenDataset(DataConfig(cfg.vocab_size, 32, 4))
     for i in range(5):
-        tokens, labels = ds.batch(i)
-        state, want = ref_step(state, jnp.asarray(tokens),
-                               jnp.asarray(labels))
-        port, got = step(port, tokens, labels)
+        tokens, labels, vision = _batch(ref_cfg, ds, i)
+        args = (jnp.asarray(tokens), jnp.asarray(labels))
+        if vision is not None:
+            args += (_vis(vision, True),)
+        state, want = ref_step(state, *args)
+        port, got = step(port, tokens, labels, _vis(vision, False))
         assert abs(float(want["loss"]) - float(got["loss"])) < 1e-2, i
         assert abs(float(want["lr"]) - float(got["lr"])) <= 1e-9
     assert int(port.step) == int(port.opt["step"]) == 5
