@@ -198,6 +198,10 @@ MIB = 1 << 20
 # move lse by log(1 + 124 / 10,560) ~ 1.2e-2: the case checks that the
 # plain version computed so fails these bounds
 CROSS_TOLS = (2e-3, 1e-3)
+# device clock cycles of spin queued ahead of a call timed for its device
+# time alone (~1 ms at the H100's 1,980 MHz): more than the host takes to
+# enqueue a wrapper
+SPIN_CYCLES = 2_000_000
 
 
 def fail(msg: str) -> None:
@@ -221,14 +225,22 @@ def run(cmd: list[str]) -> str:
     return (out.stdout + out.stderr).strip()
 
 
-def time_ms(fn, reps: int) -> float:
-    """Median device time of `fn()` in ms, one CUDA-event pair per call."""
+def time_ms(fn, reps: int, spin: bool = False) -> float:
+    """Median time of `fn()` in ms, one CUDA-event pair per call. By
+    default the device waits for the host between the events, so the time
+    is per call: the wrapper's host time (checks, allocation, the ctypes
+    call) counts where it exceeds the device's. With `spin` each call is
+    queued behind ~1 ms of device spin (`torch.cuda._sleep`), so the host
+    has enqueued both events and the call's launches before the device
+    reaches the first event: device time only (`device_ms`)."""
     import torch
     fn()                                                    # warm up
     times = []
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         e0.record()
         fn()
         e1.record()
@@ -1071,6 +1083,7 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
     out = serve(cfg, model, batch=B, requests=REQ, prompt_len=P, gen=G,
                 seed=seed, device=dev)
     flash = {"launches": fak.launches, "fp32_launches": fak.fp32_launches,
+             "decode_launches": fak.decode_launches,
              "plain_calls": fak.plain_calls,
              "blockwise_calls": layers.blockwise_calls}
     # the kernel's launches by mode: causal prefill (self-attention), not
@@ -1105,6 +1118,11 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
     if cell["attention"] == "kernel":
         check(modes == want_modes, f"flash launches by mode {modes} != "
               f"{want_modes}")
+        # every cross-attention decode call (G x 1 <= 16 rows) takes the
+        # split-KV decode kernel, and no prefill does
+        check(flash["decode_launches"] == modes["cross_decode"],
+              f"{flash['decode_launches']} decode-kernel launches != "
+              f"{modes['cross_decode']} cross-attention decode calls")
     check(flash["fp32_launches"] == 0, "fp32 flash kernel on the serve path")
     check(flash["plain_calls"] == 0, "flash plain version on the serve path")
     for toks in out["tokens"]:
@@ -1365,6 +1383,7 @@ def encode_path(cfg, model, cell: dict, seed: int, tag: str) -> dict:
         times.append(time.perf_counter() - t0)
         outs.append(logits)
     flash = {"launches": fak.launches, "fp32_launches": fak.fp32_launches,
+             "decode_launches": fak.decode_launches,
              "plain_calls": fak.plain_calls,
              "blockwise_calls": layers.blockwise_calls}
     phase(f"{tag}encode", requests=REQ, batch=B, frames=S,
@@ -1886,7 +1905,8 @@ def train_path(seed: int) -> dict:
     step_mod.adamw_update = timed("optim", originals[2])
     flops = (6 * cfg.param_count() * B * S + 12 * cfg.num_layers * B
              * cfg.num_heads * S * S // 2 * cfg.resolved_head_dim)
-    launches = {"flash_attention": 0, "gf_bitmatmul": 0, "xor_reduce": 0}
+    launches = {"flash_attention": 0, "flash_decode": 0, "gf_bitmatmul": 0,
+                "xor_reduce": 0}
     steps: list[dict] = []
 
     def train_step(state, i, tag=""):
@@ -1930,7 +1950,8 @@ def train_path(seed: int) -> dict:
               f"step {i}: {fak.launches} flash launches (want "
               f"{FLASH_PER_STEP}), {fak.plain_calls} plain, "
               f"{layers.blockwise_calls} blockwise")
-        launches["flash_attention"] += fak.launches
+        launches["flash_attention"] += fak.launches - fak.decode_launches
+        launches["flash_decode"] += fak.decode_launches
         steps.append(row)
         return state
 
@@ -2274,6 +2295,7 @@ def examples_phase() -> dict:
         lines = out.getvalue().strip().splitlines()
         counts[name] = {"launches": fak.launches,
                         "fp32_launches": fak.fp32_launches,
+                        "decode_launches": fak.decode_launches,
                         "plain_calls": fak.plain_calls,
                         "blockwise_calls": layers.blockwise_calls}
         phase(f"example {name}", seconds=f"{seconds:.2f}",
@@ -2336,6 +2358,8 @@ def main() -> None:
             print("  ptxas:", line.strip())
     for kernel, want in (("flash_fwd_sm90_kernel", 3),   # d = 64, 128, 256
                          ("flash_fwd_f32_sm90_kernel", 3),
+                         ("flash_decode_sm90_kernel", 3),
+                         ("flash_decode_combine_kernel", 3),
                          ("gf_matmul_sm90_kernel", 5)):  # N widths
         spills = ptxas_spills(_build.build_log, kernel)
         phase(f"ptxas {kernel}", functions=len(spills),
@@ -2398,19 +2422,21 @@ def main() -> None:
                               tile.passes, tile.n_width),
               f"matmul_plan {tile} != the kernel's plan {plan}")
         ms = time_ms(lambda: gfk.gf_bitmatmul(cols, data), reps)
+        dms = time_ms(lambda: gfk.gf_bitmatmul(cols, data), reps, spin=True)
         pms = time_ms(lambda: gfk.gf_bitmatmul_plain(cols, data), plain_reps)
         b, by = bound_ms(gfk.bound_bytes(S, m, k, B),
                          gfk.bound_ops(S, m, k, B))
         phase("kernel gf_bitmatmul", S=S, m=m, k=k, B=B, offset=offset,
               threads=plan["threads"], grid=plan["grid"], smem=plan["smem"],
               k_passes=plan["k_passes"],
-              max_abs_err=err, ms=f"{ms:.4f}", plain_ms=f"{pms:.3f}",
+              max_abs_err=err, ms=f"{ms:.4f}", device_ms=f"{dms:.4f}",
+              plain_ms=f"{pms:.3f}",
               bound_ms=f"{b:.4f}", bound_by=by, bound_share=f"{b / ms:.4f}",
               pass_bytes=gfk.pass_bytes(S, m, k, B),
               TOP_s=f"{gfk.bound_ops(S, m, k, B) / (ms / 1e3) / 1e12:.1f}",
               GiB_s=f"{S * k * B / GIB / (ms / 1e3):.2f}")
-        return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
-                    bound_by=by, bound_share=b / ms)
+        return dict(max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms,
+                    bound_ms=b, bound_by=by, bound_share=b / ms)
 
     def xor_case(S, s, B, reps=10, plain_reps=3, offset=0):
         if offset:
@@ -2423,14 +2449,15 @@ def main() -> None:
         err = int((got.int() - want.int()).abs().max())
         check(err == 0, f"xor_reduce != plain at S={S} s={s} B={B}")
         ms = time_ms(lambda: xrk.xor_reduce(blocks), reps)
+        dms = time_ms(lambda: xrk.xor_reduce(blocks), reps, spin=True)
         pms = time_ms(lambda: xrk.xor_reduce_plain(blocks), plain_reps)
         b, by = bound_ms(xrk.bound_bytes(S, s, B))
         phase("kernel xor_reduce", S=S, s=s, B=B, offset=offset,
-              max_abs_err=err, ms=f"{ms:.4f}", plain_ms=f"{pms:.3f}",
-              bound_ms=f"{b:.4f}", bound_by=by,
+              max_abs_err=err, ms=f"{ms:.4f}", device_ms=f"{dms:.4f}",
+              plain_ms=f"{pms:.3f}", bound_ms=f"{b:.4f}", bound_by=by,
               GiB_s=f"{xrk.bound_bytes(S, s, B) / GIB / (ms / 1e3):.2f}")
-        return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
-                    bound_by=by, bound_share=b / ms)
+        return dict(max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms,
+                    bound_ms=b, bound_by=by, bound_share=b / ms)
 
     def flash_case(B, Hq, Hkv, Sq, Skv, d, dtype, causal, window=0,
                    reps=30, plain_reps=2, tols=None):
@@ -2445,20 +2472,45 @@ def main() -> None:
         def plain():
             return fak.flash_attention_fwd_plain(q, k, v, causal=causal,
                                                  window=window)
+        # the route (`fak.is_decode`): bf16 with Hq / Hkv x Sq <= 16 rows
+        # launches the split-KV decode kernel, every other call the
+        # prefill kernel of its dtype; the counters say which ran
+        decode = fak.is_decode(q, k)
+        n_split = fak.decode_splits(B * Hkv, Skv, sms) if decode else 0
+        before = (fak.launches, fak.decode_launches)
         out, lse = kernel()
+        ran = (fak.launches - before[0], fak.decode_launches - before[1])
         want, want_lse = plain()
         torch.cuda.synchronize()
-        err = (out.float() - want.float()).abs().max().item()
-        dead = torch.isneginf(lse) & torch.isneginf(want_lse)
-        lse_err = torch.where(dead, 0.0, (lse - want_lse).abs()).max().item()
         bf16 = dtype == torch.bfloat16
         tol, lse_tol = tols or ((2e-2, 2e-2) if bf16 else (2e-5, 1e-4))
         shape = (f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} d={d} "
                  f"{dtype} causal={causal} window={window}")
+        check(ran == (1, int(decode)), f"{shape}: launches (all, decode) "
+              f"{ran}, want (1, {int(decode)})")
+
+        def errors(want, want_lse):
+            dead = torch.isneginf(want_lse)
+            check(torch.equal(torch.isneginf(lse), dead),
+                  f"{shape}: rows without a key differ")
+            return ((out.float() - want.float()).abs().max().item(),
+                    torch.where(dead, 0.0, (lse - want_lse).abs()).max()
+                    .item())
+        err, lse_err = errors(want, want_lse)
         check(err <= tol and lse_err <= lse_tol,
               f"flash_attention != plain at {shape}: out {err}, lse {lse_err}")
+        split = {}
+        if decode:
+            # and the decode kernel's own algorithm at its own n_split
+            s_err, s_lse_err = errors(*fak.flash_decode_plain(
+                q, k, v, causal=causal, window=window, n_split=n_split))
+            check(s_err <= tol and s_lse_err <= lse_tol,
+                  f"decode kernel != flash_decode_plain at {shape}, n_split "
+                  f"{n_split}: out {s_err}, lse {s_lse_err}")
+            split = dict(n_split=n_split, split_plain_err=s_err,
+                         split_plain_lse_err=s_lse_err)
         tail = {}
-        if tols:
+        if tols and Skv % 128:
             # the bounds' witness: keys padded with zeros to the next
             # 128-key tile, the padding not masked
             kz, vz = (torch.nn.functional.pad(t, (0, 0, 0, -Skv % 128))
@@ -2484,8 +2536,10 @@ def main() -> None:
                 q, k, v, attn_mask=mask, is_causal=causal and mask is None,
                 enable_gqa=True)
         ms = time_ms(kernel, reps)
+        dms = time_ms(kernel, reps, spin=True)
         pms = time_ms(plain, plain_reps)
         lms = time_ms(library, reps)
+        ldms = time_ms(library, reps, spin=True)
         ops = fak.bound_flops(B, Hq, Sq, Skv, d, d, causal=causal,
                               window=window)
         # fp32 at fp32 accuracy on the tensor cores: three TF32 products
@@ -2493,19 +2547,26 @@ def main() -> None:
         b, by = bound_ms(
             fak.bound_bytes(B, Hq, Hkv, Sq, Skv, d, d, q.element_size()),
             *((ops, BF16_OPS_PER_S) if bf16 else (3 * ops, TF32_OPS_PER_S)))
-        phase("kernel flash_attention", B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Skv=Skv,
+        phase("kernel flash_decode" if decode else "kernel flash_attention",
+              B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Skv=Skv,
               d=d, dtype=str(dtype).replace("torch.", ""), causal=causal,
-              window=window, max_abs_err=f"{err:.3e}",
+              window=window, **{key: (f"{x:.3e}" if isinstance(x, float)
+                                      else x) for key, x in split.items()},
+              max_abs_err=f"{err:.3e}",
               lse_max_abs_err=f"{lse_err:.3e}", tol_out=tol,
               tol_lse=lse_tol,
               **{key: f"{x:.3e}" for key, x in tail.items()}, ms=f"{ms:.4f}",
               plain_ms=f"{pms:.3f}", library_ms=f"{lms:.4f}",
               bound_ms=f"{b:.4f}", bound_by=by,
               bound_share=f"{b / ms:.4f}", vs_library=f"{ms / lms:.3f}",
+              device_ms=f"{dms:.4f}", library_device_ms=f"{ldms:.4f}",
+              device_bound_share=f"{b / dms:.4f}",
+              device_vs_library=f"{dms / ldms:.3f}",
               TFLOP_s=f"{ops / (ms / 1e3) / 1e12:.1f}")
-        return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
-                    bound_by=by, bound_share=b / ms, library_ms=lms,
-                    lse_max_abs_err=lse_err, **tail)
+        return dict(max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms,
+                    bound_ms=b, bound_by=by, bound_share=b / ms,
+                    library_ms=lms, library_device_ms=ldms,
+                    lse_max_abs_err=lse_err, **split, **tail)
 
     rng = np.random.default_rng(2505)
     # a broken mbarrier ring would hang the card (the gf and flash kernels
@@ -2573,10 +2634,37 @@ def main() -> None:
     flash_case(2, 16, 1, 1, 1, 256, bf16, True, reps=10)
     # llama-3.2-vision's cross-attention: not causal, the ragged vision
     # length 6404 = 50 x 128 + 4, at prefill (Sq 2048) and decode (Sq 1)
+    # (Sq 1 is a decode: the split-KV decode kernel)
     flash_cross = {
         f"B=4 Hq=32 Hkv=8 Sq={Sq} Skv=6404 d=128 non-causal": flash_case(
             4, 32, 8, Sq, 6404, 128, bf16, False, tols=CROSS_TOLS)
         for Sq in (2048, 1)}
+    # the decode kernel (bf16, Hq / Hkv x Sq <= 16 rows) beyond the vision
+    # decode: the vision heads over Skv 1, 127 and 32768; G = 1 (Hkv = Hq)
+    # and 16 (recurrentgemma's 16 / 1 at d = 256); d = 64 and 256; a
+    # causal window at Sq = 4 where rows see no key; G x Sq at the cap
+    # (G 4, Sq 4). Each against both plain versions, SDPA timed beside;
+    # over 1,000 keys and more |out| is ~0.01-0.03, so those cases are held
+    # to CROSS_TOLS (the bf16 2e-2 would pass a wrong PV product)
+    flash_decode = {"B=4 Hq=32 Hkv=8 Sq=1 Skv=6404 d=128 non-causal":
+                    flash_cross["B=4 Hq=32 Hkv=8 Sq=1 Skv=6404 d=128 "
+                                "non-causal"]}
+    for case in ((4, 32, 8, 1, 1, 128, bf16, False),
+                 (4, 32, 8, 1, 127, 128, bf16, False),
+                 (4, 32, 8, 1, 32768, 128, bf16, False),
+                 (4, 32, 32, 1, 6404, 128, bf16, False),
+                 (2, 16, 1, 1, 3968, 256, bf16, False),
+                 (4, 32, 8, 1, 6404, 64, bf16, False),
+                 (4, 32, 8, 1, 6404, 256, bf16, False),
+                 (2, 8, 2, 4, 2, 128, bf16, True, 2),
+                 (4, 32, 8, 4, 6404, 128, bf16, False)):
+        name = ("B={} Hq={} Hkv={} Sq={} Skv={} d={} ".format(*case[:6])
+                + (f"causal window={case[8]}" if case[7] else "non-causal"))
+        flash_decode[name] = flash_case(
+            *case, reps=10, tols=CROSS_TOLS if case[4] >= 1000 else None)
+    # one row group past the cap (G 4, Sq 5: 20 rows): the prefill kernel
+    flash_past_cap = flash_case(4, 32, 8, 5, 6404, 128, bf16, False, reps=10,
+                                tols=CROSS_TOLS)
     # the flash layer's gradient: kernel forward, blockwise backward
     flash_grad = flash_grad_check(gen, dev)
     faulthandler.cancel_dump_traceback_later()
@@ -2623,6 +2711,7 @@ def main() -> None:
                            "--prompt-len", "8", "--gen", "2"])
     smoke_counts = {"launches": fak.launches,
                     "fp32_launches": fak.fp32_launches,
+                    "decode_launches": fak.decode_launches,
                     "plain_calls": fak.plain_calls,
                     "blockwise_calls": layers.blockwise_calls}
     phase("serve smoke arch", seconds=f"{time.perf_counter() - t0:.2f}",
@@ -2733,6 +2822,17 @@ def main() -> None:
                      "serve_vision": vision_path["fp32_launches"],
                      "encode_hubert": hubert_path["fp32_launches"],
                      "example_train": example["fp32_launches"]}
+    def prefill(r):       # launches of the bf16 prefill kernel on a path
+        return r["launches"] - r["fp32_launches"] - r["decode_launches"]
+    decode_by_path = {"serve": flash["decode_launches"],
+                      "serve_recurrentgemma": flash_rg_path["decode_launches"],
+                      "train": train["flash_decode"],
+                      "serve_minicpm3": mla_path["decode_launches"],
+                      "serve_phi35moe": moe_path["decode_launches"],
+                      "serve_rwkv6": rwkv_path["decode_launches"],
+                      "serve_vision": vision_path["decode_launches"],
+                      "encode_hubert": hubert_path["decode_launches"],
+                      "example_train": example["decode_launches"]}
     kernels = [
         dict(name="gf_bitmatmul", kernel="gf_matmul_sm90_kernel",
              route="cuda", source="src/repro_torch/csrc/gf_matmul_sm90.cu",
@@ -2765,37 +2865,41 @@ def main() -> None:
         dict(name="flash_attention", kernel="flash_fwd_sm90_kernel",
              route="cuda", source="src/repro_torch/csrc/flash_fwd_sm90.cu",
              replaces="src/repro/kernels/flash_attention.py:116",
-             launches=flash["launches"] - flash["fp32_launches"],
-             launches_by_path={"serve": flash["launches"]
-                               - flash["fp32_launches"],
+             launches=prefill(flash),
+             launches_by_path={"serve": prefill(flash),
                                "train": train["flash_attention"],
-                               "serve_phi35moe": moe_path["launches"]
-                               - moe_path["fp32_launches"],
-                               "serve_minicpm3": mla_path["launches"]
-                               - mla_path["fp32_launches"],
-                               "serve_rwkv6": rwkv_path["launches"]
-                               - rwkv_path["fp32_launches"],
-                               "serve_vision": vision_path["launches"]
-                               - vision_path["fp32_launches"],
-                               "encode_hubert": hubert_path["launches"]
-                               - hubert_path["fp32_launches"],
-                               "example_train": example["launches"]
-                               - example["fp32_launches"]},
+                               "serve_phi35moe": prefill(moe_path),
+                               "serve_minicpm3": prefill(mla_path),
+                               "serve_rwkv6": prefill(rwkv_path),
+                               "serve_vision": prefill(vision_path),
+                               "encode_hubert": prefill(hubert_path),
+                               "example_train": prefill(example)},
              **flash_main, **flash_grad,
              # the row's numbers are the llama prefill shape's; phase 16's
-             # cross-attention shapes, with every key of a row, here
-             cross_shapes={name: dict(r, launches=vision_path[key])
-                           for (name, r), key in zip(
-                               flash_cross.items(),
-                               ("cross_prefill", "cross_decode"))}),
+             # cross-attention prefill shape, with every key of a row, here
+             # (its decode shape is the flash_decode row's)
+             cross_shapes={name: dict(r, launches=vision_path[
+                 "cross_prefill"]) for name, r in flash_cross.items()
+                 if "Sq=2048" in name}),
         dict(name="flash_attention_d256", kernel="flash_fwd_sm90_kernel<256>",
              route="cuda", source="src/repro_torch/csrc/flash_fwd_sm90.cu",
              replaces="src/repro/kernels/flash_attention.py:116",
-             launches=flash_rg_path["launches"]
-             - flash_rg_path["fp32_launches"],
-             launches_by_path={"serve_recurrentgemma": flash_rg_path[
-                 "launches"] - flash_rg_path["fp32_launches"]},
+             launches=prefill(flash_rg_path),
+             launches_by_path={"serve_recurrentgemma": prefill(
+                 flash_rg_path)},
              **flash_rg),
+        # bf16 calls of at most 16 rows a kv head: every cross-attention
+        # decode step of phase 16. The row's numbers are the vision decode
+        # shape's; `shapes` has phase 3's decode cases, `past_cap` the
+        # case one row group past the cap, which ran the prefill kernel
+        dict(name="flash_decode", kernel="flash_decode_sm90_kernel",
+             route="cuda", source="src/repro_torch/csrc/flash_decode_sm90.cu",
+             replaces="src/repro/kernels/flash_attention.py:116",
+             launches=sum(decode_by_path.values()),
+             launches_by_path=decode_by_path,
+             **flash_decode["B=4 Hq=32 Hkv=8 Sq=1 Skv=6404 d=128 "
+                            "non-causal"],
+             shapes=flash_decode, past_cap=flash_past_cap),
         # fp32 attention at d = 64, 128 and 256: every model config is
         # bf16, so the serve phases (6, 8, 9), which check it, count no
         # fp32 launch; phase 3 checks and times the kernel. The row's

@@ -666,22 +666,6 @@ flash_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tm_q,
   }
 }
 
-// (D, rows, heads) bf16, row-major: boxes of 64 columns x `box_rows` rows
-// x 1 head, 128-byte swizzle, zero fill past `rows`
-bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
-              long long rows, long long heads, int D, int box_rows) {
-  const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(rows),
-                              cuuint64_t(heads)};
-  const cuuint64_t strides[2] = {cuuint64_t(D) * 2, cuuint64_t(rows) * D * 2};
-  const cuuint32_t box[3] = {kBoxCols, cuuint32_t(box_rows), 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            long long B, long long Hq, long long Hkv, long long Sq,
@@ -690,9 +674,9 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return int(cudaErrorNotSupported);
   CUtensorMap mq, mk, mv;
-  if (!make_map(encode, &mq, q, Sq, B * Hq, D, kBQ) ||
-      !make_map(encode, &mk, k, Skv, B * Hkv, D, Tile<D>::kBK) ||
-      !make_map(encode, &mv, v, Skv, B * Hkv, D, Tile<D>::kBK))
+  if (!bf16_rows_map(encode, &mq, q, Sq, B * Hq, D, kBQ) ||
+      !bf16_rows_map(encode, &mk, k, Skv, B * Hkv, D, Tile<D>::kBK) ||
+      !bf16_rows_map(encode, &mv, v, Skv, B * Hkv, D, Tile<D>::kBK))
     return int(cudaErrorInvalidValue);
   auto* fn = &flash_fwd_sm90_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's hand-written
-// kernels (flash_fwd_sm90.cu, gf_matmul_sm90.cu): shared-memory addresses,
-// mbarriers, TMA box loads, wgmma fences and waits, and
-// `cuTensorMapEncodeTiled` reached through the runtime.
+// kernels (flash_fwd_sm90.cu, flash_decode_sm90.cu, gf_matmul_sm90.cu):
+// shared-memory addresses, mbarriers, TMA box loads, wgmma fences and
+// waits, `cuTensorMapEncodeTiled` reached through the runtime, and the
+// attention kernels' bf16 tensor maps.
 
 #pragma once
 
@@ -112,6 +113,24 @@ EncodeTiled encode_tiled() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// (D, rows, heads) bf16, row-major: boxes of 64 columns (128 bytes) x
+// `box_rows` rows x 1 head, 128-byte swizzle, zero fill past `rows` (so a
+// box never reads the next head's rows)
+inline bool bf16_rows_map(EncodeTiled encode, CUtensorMap* map,
+                          const void* ptr, long long rows, long long heads,
+                          int D, int box_rows) {
+  const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(rows),
+                              cuuint64_t(heads)};
+  const cuuint64_t strides[2] = {cuuint64_t(D) * 2, cuuint64_t(rows) * D * 2};
+  const cuuint32_t box[3] = {64, cuuint32_t(box_rows), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

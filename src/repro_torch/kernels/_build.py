@@ -10,6 +10,7 @@ import time: the first CUDA launch calls `library()`.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -106,6 +107,10 @@ def _load(path: str) -> ctypes.CDLL:
         fn.argtypes = [p, p, p, p, p, i64, i64, i64, i64, i64, i64,
                        ctypes.c_int, i64, ctypes.c_float, p]
         fn.restype = ctypes.c_int
+    lib.repro_flash_decode_bf16.argtypes = [
+        p, p, p, p, p, i64, i64, i64, i64, i64, i64, ctypes.c_int, i64,
+        ctypes.c_float, p, p, i64, p]
+    lib.repro_flash_decode_bf16.restype = ctypes.c_int
     lib.repro_error_string.argtypes = [ctypes.c_int]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib
@@ -132,6 +137,26 @@ def library() -> ctypes.CDLL:
                 _compile(path)
             _LIB = _load(str(path))
     return _LIB
+
+
+def stream_handle(device) -> int:
+    """The raw handle of `device`'s current CUDA stream: what
+    `torch.cuda.current_stream(device).cuda_stream` gives, without building
+    a Stream object (12 us of host time a call on an H100 host)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if device.index is None
+        else device.index)
+
+
+def device_guard(device):
+    """`torch.cuda.device(device)` for a launch, or nothing to switch where
+    `device` is the current device already (5.6 us a call on an H100
+    host)."""
+    import torch
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check(err: int, name: str) -> None:

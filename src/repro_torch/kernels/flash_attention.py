@@ -2,29 +2,40 @@
 sliding-window masks, fully masked tiles skipped.
 
 Port of the Pallas kernel `repro.kernels.flash_attention.flash_attention_fwd`
-as two hand-written CUDA kernels for Hopper, routed by dtype, both at
-(dk, dv) in {(64, 64), (128, 128), (256, 256)}:
+as three hand-written CUDA kernels for Hopper, routed by dtype and by the
+rows a kv head serves (G x Sq, G = Hq / Hkv), all at (dk, dv) in
+{(64, 64), (128, 128), (256, 256)}:
 
-- bf16: `flash_fwd_sm90_kernel` (`csrc/flash_fwd_sm90.cu`): a persistent
-  grid whose CTAs walk 128-row q tiles over key tiles (128 keys, or 64 at
-  head dim 256), one producer warpgroup feeding a TMA ring and two
-  consumer warpgroups taking turns on `wgmma`;
+- bf16, G x Sq <= `DECODE_ROWS` (a decode step: the vision model's
+  cross-attention at Sq = 1): `flash_decode_sm90_kernel`
+  (`csrc/flash_decode_sm90.cu`), split-KV: (B x Hkv) x n_split CTAs,
+  each over one slice of one kv head's keys with the G x Sq rows that
+  read it packed into one 16-row tile, so K and V are read once; then
+  `flash_decode_combine_kernel` merges the slices' (acc, m, l).
+  `flash_decode_plain` is its algorithm step by step;
+- bf16, more rows: `flash_fwd_sm90_kernel` (`csrc/flash_fwd_sm90.cu`): a
+  persistent grid whose CTAs walk 128-row q tiles over key tiles (128
+  keys, or 64 at head dim 256), one producer warpgroup feeding a TMA
+  ring and two consumer warpgroups taking turns on `wgmma`;
 - fp32: `flash_fwd_f32_sm90_kernel` (`csrc/flash_fwd_f32_sm90.cu`): the
   tensor cores in TF32 with each operand split into a TF32 high and low
   part (three `mma.sync` m16n8k8 products: hi*hi + hi*lo + lo*hi), which
   holds fp32 accuracy; 64-row q tiles of 4 warps over 32-key tiles in a
   2-stage `cp.async` ring, S, P and O in registers.
 
-Both take any Sq, Skv >= 1 (the Pallas kernel needs them to divide its
+All take any Sq, Skv >= 1 (the Pallas kernel needs them to divide its
 blocks), so the port's CUDA path has no branch to a plain version.
 
-`flash_attention_fwd` is the wrapper: a CUDA tensor launches one of the
-kernels (and counts it in `launches`, an fp32 one also in
-`fp32_launches`, each also in `mode_launches` under (causal, Sq == 1)), a
-CPU tensor takes
+`flash_attention_fwd` is the wrapper. The route is the same on both
+devices: a bf16 call with G x Sq <= `DECODE_ROWS` takes the decode path,
+every other call the prefill path. A CUDA tensor launches the route's
+kernel (counted in `launches`, each also in `mode_launches` under
+(causal, Sq == 1), a decode launch also in `decode_launches`, an fp32 one
+in `fp32_launches`); a CPU tensor takes `flash_decode_plain` or
 `flash_attention_fwd_plain` (counted in `plain_calls`). There is no
-fallback from one to the other. `block_q` / `block_k` shape only the plain
-version's block loop; the kernels' tiles are fixed by their design.
+fallback from one to the other. `block_q` / `block_k` shape only the
+prefill plain version's block loop; the kernels' tiles are fixed by their
+design.
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ import threading
 import torch
 
 from . import _build
+from .autotune import H100_SMS
 
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
@@ -43,9 +55,16 @@ HEAD_DIMS = ((64, 64), (128, 128), (256, 256))
 #: C entry point of the kernel for each input dtype.
 _ENTRY = {torch.float32: "repro_flash_fwd_f32",
           torch.bfloat16: "repro_flash_fwd_bf16"}
+_DECODE_ENTRY = "repro_flash_decode_bf16"
+#: bf16 calls with G x Sq at most this many rows take the decode path
+#: (`kRows` in csrc/flash_decode_sm90.cu: one 16-row `mma.sync` tile)
+DECODE_ROWS = 16
+#: the decode kernel's key tile (`kBK`): slices are whole tiles
+DECODE_BK = 64
 
-launches = 0        # CUDA kernel launches, both kernels
+launches = 0        # CUDA kernel launches, all kernels
 fp32_launches = 0   # of those, launches of `flash_fwd_f32_sm90_kernel`
+decode_launches = 0  # of those, launches of `flash_decode_sm90_kernel`
 plain_calls = 0     # plain-PyTorch evaluations (CPU tensors)
 #: launches by (causal, Sq == 1): a model's prefills launch Sq > 1, its
 #: decode steps (cross-attention only) Sq == 1
@@ -54,10 +73,87 @@ _COUNT_LOCK = threading.Lock()
 
 
 def reset_counts() -> None:
-    global launches, fp32_launches, plain_calls
+    global launches, fp32_launches, decode_launches, plain_calls
     with _COUNT_LOCK:
-        launches = fp32_launches = plain_calls = 0
+        launches = fp32_launches = decode_launches = plain_calls = 0
         mode_launches.clear()
+
+
+def is_decode(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """The wrapper's route: bf16 with G x Sq <= `DECODE_ROWS` rows a kv
+    head goes to the decode path, on either device."""
+    return (q.dtype == torch.bfloat16
+            and q.shape[1] // k.shape[1] * q.shape[2] <= DECODE_ROWS)
+
+
+def decode_splits(bh: int, skv: int, sms: int) -> int:
+    """Key slices per (batch x kv head) for the decode kernel: enough that
+    `bh` x slices CTAs put one on each of `sms` SMs in one wave, each
+    slice a whole number of `DECODE_BK`-key tiles and none empty. Two
+    CTAs fit an SM at d = 128, but one an SM ran faster at the vision
+    decode on an H100 (4 slices against 8: PERF.md §6). At the vision
+    decode (bh 32, Skv 6404, 132 SMs): 4 slices of 26 tiles, the last of
+    1,412 keys."""
+    n_tiles = -(-skv // DECODE_BK)
+    want = max(1, min(n_tiles, sms // bh))
+    per = -(-n_tiles // want)
+    return -(-n_tiles // per)
+
+
+def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True, window: int = 0, n_split: int = 1
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The decode kernel's split-KV algorithm step by step, in plain
+    PyTorch: the keys cut into `n_split` slices of whole `DECODE_BK`-key
+    tiles (the last ends at Skv; slices past it are empty), per slice the
+    Pallas kernel's rules in fp32 (masked scores give p = 0, m starts at
+    -1e30, so a slice no row sees has m = -1e30, l = 0), then the combine:
+    M = max_j m_j, l = sum_j l_j e^(m_j - M), out = sum_j acc_j
+    e^(m_j - M) / max(l, 1e-30) in q's dtype, lse = M + log(l) where
+    l > 0, else -inf."""
+    B, Hq, Sq, dk = q.shape
+    Hkv, Skv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = Hq // Hkv
+    scale = dk ** -0.5
+    dev = q.device
+    qf = q.float().reshape(B, Hkv, G, Sq, dk)
+    kf, vf = k.float(), v.float()
+    n_tiles = -(-Skv // DECODE_BK)
+    per = -(-n_tiles // n_split) * DECODE_BK             # keys a slice
+    ms, ls, accs = [], [], []
+    for j in range(n_split):
+        lo, hi = j * per, min((j + 1) * per, Skv)
+        m = torch.full((B, Hkv, G, Sq), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, Hkv, G, Sq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, Hkv, G, Sq, dv), dtype=torch.float32,
+                          device=dev)
+        if lo < hi:
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf[:, :, lo:hi]) * scale
+            qpos = torch.arange(Sq, device=dev)[:, None]
+            kpos = torch.arange(lo, hi, device=dev)[None]
+            mask = torch.ones((Sq, hi - lo), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= qpos >= kpos
+            if window:
+                mask &= qpos - kpos < window
+            s = torch.where(mask, s, NEG_INF)
+            m = torch.maximum(m, s.amax(dim=-1))
+            p = torch.where(s <= NEG_INF / 2, 0.0,
+                            torch.exp(s - m[..., None]))
+            l = p.sum(dim=-1)
+            acc = torch.einsum("bhgqk,bhkd->bhgqd", p, vf[:, :, lo:hi])
+        ms.append(m)
+        ls.append(l)
+        accs.append(acc)
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    M = m.amax(dim=0)
+    w = torch.where(m <= NEG_INF / 2, 0.0, torch.exp(m - M))
+    l = (l * w).sum(dim=0)
+    acc = (acc * w[..., None]).sum(dim=0)
+    out = (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+    lse = torch.where(l > 0, M + torch.log(l.clamp_min(1e-30)), -torch.inf)
+    return out.reshape(B, Hq, Sq, dv), lse.reshape(B, Hq, Sq)
 
 
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -148,6 +244,19 @@ def bound_bytes(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, dk: int,
             + 4 * B * Hq * Sq)
 
 
+_SMS: dict[int, int] = {}
+
+
+def _sms(device: torch.device) -> int:
+    """The card's SM count (cached per device index)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SMS[index]
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            window: int) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -173,12 +282,20 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         block_k: int = DEFAULT_BLOCK_K
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """q (B, Hq, Sq, dk), k (B, Hkv, Skv, dk), v (B, Hkv, Skv, dv) ->
-    (out (B, Hq, Sq, dv) in q's dtype, lse (B, Hq, Sq) fp32), one launch."""
-    global launches, fp32_launches, plain_calls
+    (out (B, Hq, Sq, dv) in q's dtype, lse (B, Hq, Sq) fp32): one launch
+    of the dtype's prefill kernel, or on the decode route (`is_decode`)
+    one of the decode kernel and one of its combine."""
+    global launches, fp32_launches, decode_launches, plain_calls
     _check(q, k, v, window)
+    decode = is_decode(q, k)
     if q.device.type == "cpu":
         with _COUNT_LOCK:
             plain_calls += 1
+        if decode:       # at the slices of an H100 SXM (132 SMs)
+            return flash_decode_plain(
+                q, k, v, causal=causal, window=window,
+                n_split=decode_splits(q.shape[0] * k.shape[1], k.shape[2],
+                                      H100_SMS))
         return flash_attention_fwd_plain(q, k, v, causal=causal,
                                          window=window, block_q=block_q,
                                          block_k=block_k)
@@ -201,18 +318,31 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"16-byte aligned {name}")
     out = torch.empty((B, Hq, Sq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    entry = getattr(_build.library(), _ENTRY[q.dtype])
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    lse.data_ptr(), B, Hq, Hkv, Sq, Skv, dk,
-                    int(bool(causal)), int(window),
-                    ctypes.c_float(dk ** -0.5), stream)
-    _build.check(err, _ENTRY[q.dtype])
+    name = _DECODE_ENTRY if decode else _ENTRY[q.dtype]
+    entry = getattr(_build.library(), name)
+    stream = _build.stream_handle(q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B, Hq, Hkv, Sq, Skv, dk, int(bool(causal)),
+            int(window), ctypes.c_float(dk ** -0.5))
+    with _build.device_guard(q.device):
+        if decode:
+            n_split = decode_splits(B * Hkv, Skv, _sms(q.device))
+            # the slices' fp32 partials in one workspace: rows x dv of
+            # acc, then rows x 2 of (m, l)
+            rows = B * Hkv * n_split * (Hq // Hkv) * Sq
+            part = torch.empty(rows * (dv + 2), dtype=torch.float32,
+                               device=q.device)
+            err = entry(*args, part.data_ptr(), part.data_ptr()
+                        + 4 * rows * dv, n_split, stream)
+        else:
+            err = entry(*args, stream)
+    _build.check(err, name)
     with _COUNT_LOCK:
         launches += 1
         if q.dtype == torch.float32:
             fp32_launches += 1
+        if decode:
+            decode_launches += 1
         mode = (bool(causal), Sq == 1)
         mode_launches[mode] = mode_launches.get(mode, 0) + 1
     return out, lse

@@ -145,8 +145,8 @@ def gf_bitmatmul(cols: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
         aligned[:, :, :B] = data
         data = aligned
     lib = _build.library()
-    stream = torch.cuda.current_stream(data.device).cuda_stream
-    with torch.cuda.device(data.device):
+    stream = _build.stream_handle(data.device)
+    with _build.device_guard(data.device):
         err = lib.repro_gf_matmul(cols.data_ptr(), data.data_ptr(),
                                   out.data_ptr(), S, m, k, B, stream)
     _build.check(err, "gf_matmul")

@@ -71,8 +71,8 @@ def xor_reduce(blocks: torch.Tensor) -> torch.Tensor:
     if B == 0:
         return out
     lib = _build.library()
-    stream = torch.cuda.current_stream(blocks.device).cuda_stream
-    with torch.cuda.device(blocks.device):
+    stream = _build.stream_handle(blocks.device)
+    with _build.device_guard(blocks.device):
         err = lib.repro_xor_fold(blocks.data_ptr(), out.data_ptr(),
                                  S, s, B, stream)
     _build.check(err, "xor_fold")

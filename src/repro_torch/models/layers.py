@@ -133,7 +133,12 @@ def _chunk(size: int, target: int = 1024) -> int:
 def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool, window: int
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(out, fp32 lse) through the route of `flash_attention`."""
+    """(out, fp32 lse) through the route of `flash_attention`: blockwise
+    for head dims the kernels lack, else `fa.flash_attention_fwd`, whose
+    own route sends bf16 calls of at most `fa.DECODE_ROWS` rows a kv head
+    (Hq / Hkv x Sq: the cross-attention decode step) to the split-KV
+    decode kernel and every other call to the prefill kernel of its
+    dtype."""
     global blockwise_calls
     dk, dv = q.shape[-1], v.shape[-1]
     if (dk, dv) not in fa.HEAD_DIMS and dk % 128:
@@ -172,7 +177,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, Hq, Sq, dv), differentiable in q, k and v. Routed as the
     reference's `_flash_fn` routes: (dk, dv) in `fa.HEAD_DIMS` (64, 128
     and 256), and every dk that is a multiple of 128, go to the flash
-    kernel's wrapper, which raises on the card for a pair it lacks; every
+    kernel's wrapper, which raises on the card for a pair it lacks and
+    sends bf16 calls of at most `fa.DECODE_ROWS` rows a kv head (a decode
+    step) to the split-KV decode kernel (`flash_decode_plain` on the
+    CPU), the rest to the prefill kernel; every
     other head dim takes the blockwise forward
     `fa.flash_attention_fwd_plain`, the counterpart of the reference's
     jnp `_flash_fwd_impl`, counted in `blockwise_calls`. The backward is

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card. Byte equality for the coding kernels (GF(2^8) coding is exact);
-attention within 2e-2 in bf16 and 2e-5 (out) / 1e-4 (lse) in fp32; the
-flash layer's gradient and a train step on the card within 2e-2.
+attention within 2e-2 in bf16 (the decode kernel against both plain
+versions; 2e-3 on out and 1e-3 on lse over 1,000 keys and more) and 2e-5
+(out) / 1e-4 (lse) in fp32; the flash layer's gradient and a train step
+on the card within 2e-2.
 
 Every test here is marked `cuda` and skips without a CUDA device. The file
 imports nothing of the reference package, so it runs on a machine without
@@ -253,7 +255,10 @@ def test_flash_cross_attention_shapes_see_an_unmasked_tail(card, Sq):
     tol, lse_tol = 2e-3, 1e-3
     q, k, v = (t.to(card) for t in _qkv(Sq, 4, 32, 8, Sq, 6404, 128,
                                         torch.bfloat16))
+    fak.reset_counts()
     out, lse = fak.flash_attention_fwd(q, k, v, causal=False)
+    # the decode (Sq = 1: 4 rows a kv head) takes the split-KV kernel
+    assert (fak.launches, fak.decode_launches) == (1, int(Sq == 1))
     want, want_lse = fak.flash_attention_fwd_plain(q, k, v, causal=False)
     kz, vz = (torch.nn.functional.pad(t, (0, 0, 0, 124)) for t in (k, v))
     bad, bad_lse = fak.flash_attention_fwd_plain(q, kz, vz, causal=False)
@@ -262,6 +267,114 @@ def test_flash_cross_attention_shapes_see_an_unmasked_tail(card, Sq):
     assert (lse - want_lse).abs().max().item() <= lse_tol
     assert ((bad.float() - want.float()).abs().max().item() > tol
             or (bad_lse - want_lse).abs().max().item() > lse_tol)
+
+
+# the split-KV decode kernel (bf16, Hq / Hkv x Sq <= 16 rows a kv head)
+# at phase 3's decode shapes, B = 1: the vision heads (G = 4) over Skv 1,
+# 127, 6404 and 32768; G = 1 and 16 (recurrentgemma's 16 / 1 at d = 256);
+# d = 64 and 256; masks at Sq = 4 (rows past the keys see none, the causal
+# triangle leaves most slices empty); G x Sq at the cap
+# B, Hq, Hkv, Sq, Skv, d, causal, window
+DECODE_CASES = [
+    (1, 32, 8, 1, 1, 128, False, 0), (1, 32, 8, 1, 127, 128, False, 0),
+    (1, 32, 8, 1, 6404, 128, False, 0), (1, 32, 8, 1, 32768, 128, False, 0),
+    (1, 32, 32, 1, 6404, 128, False, 0), (1, 16, 1, 1, 3968, 256, False, 0),
+    (1, 32, 8, 1, 6404, 64, False, 0), (1, 32, 8, 1, 6404, 256, False, 0),
+    (2, 8, 2, 4, 2, 128, True, 2), (1, 8, 2, 4, 300, 64, True, 0),
+    (1, 8, 2, 4, 300, 256, False, 3), (1, 32, 8, 4, 6404, 128, False, 0),
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,d,causal,window", DECODE_CASES)
+def test_flash_decode_matches_both_plain_versions(card, B, Hq, Hkv, Sq, Skv,
+                                                  d, causal, window):
+    """One launch of the decode kernel, within the bf16 bounds of the
+    prefill plain version and of `flash_decode_plain` at the kernel's own
+    n_split; rows that see no key are -inf in all three. Over 1,000 keys
+    and more |out| is ~0.01-0.03, so there the bounds are 2e-3 on out and
+    1e-3 on lse (chip_smoke.py's CROSS_TOLS), not the bf16 2e-2."""
+    tol, lse_tol = (2e-3, 1e-3) if Skv >= 1000 else (2e-2, 2e-2)
+    q, k, v = (t.to(card) for t in _qkv(Skv, B, Hq, Hkv, Sq, Skv, d,
+                                        torch.bfloat16))
+    fak.reset_counts()
+    out, lse = fak.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (fak.launches, fak.decode_launches, fak.plain_calls) == (1, 1, 0)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    n_split = fak.decode_splits(B * Hkv, Skv, sms)
+    for want, want_lse in (
+            fak.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                          window=window),
+            fak.flash_decode_plain(q, k, v, causal=causal, window=window,
+                                   n_split=n_split)):
+        dead = torch.isneginf(want_lse)
+        assert torch.equal(torch.isneginf(lse), dead)
+        assert (out.float() - want.float()).abs().max().item() <= tol
+        if not dead.all():
+            assert (lse - want_lse)[~dead].abs().max().item() <= lse_tol
+        assert (out[dead] == 0).all()
+
+
+@pytest.mark.parametrize("G,Sq,decode", [(4, 4, True), (4, 5, False),
+                                         (16, 1, True), (1, 17, False)])
+def test_flash_decode_cap_picks_the_kernel(card, G, Sq, decode):
+    """G x Sq <= DECODE_ROWS launches the decode kernel (and not the
+    prefill kernel); one row group past it launches the prefill kernel.
+    Both count in `launches` and in `mode_launches`."""
+    q, k, v = (t.to(card) for t in _qkv(5, 1, 2 * G, 2, Sq, 500, 128,
+                                        torch.bfloat16))
+    fak.reset_counts()
+    out, _ = fak.flash_attention_fwd(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert (fak.launches, fak.decode_launches, fak.plain_calls) == \
+        (1, int(decode), 0)
+    assert fak.mode_launches == {(False, Sq == 1): 1}
+    want, _ = fak.flash_attention_fwd_plain(q, k, v, causal=False)
+    assert (out.float() - want.float()).abs().max().item() <= 2e-2
+
+
+def test_launches_go_to_the_current_stream(card):
+    """`_build.stream_handle` is the current stream's handle, on the
+    default stream and inside `torch.cuda.stream`, and a decode launched
+    on a side stream there gives the default stream's result."""
+    from repro_torch.kernels import _build
+
+    for device in (card, torch.device("cuda", torch.cuda.current_device())):
+        assert _build.stream_handle(device) == \
+            torch.cuda.current_stream(device).cuda_stream
+    q, k, v = (t.to(card) for t in _qkv(2, 1, 8, 2, 1, 300, 128,
+                                        torch.bfloat16))
+    want, want_lse = fak.flash_attention_fwd(q, k, v, causal=False)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assert _build.stream_handle(card) == side.cuda_stream
+        out, lse = fak.flash_attention_fwd(q, k, v, causal=False)
+    side.synchronize()
+    assert torch.equal(out, want) and torch.equal(lse, want_lse)
+
+
+def test_flash_decode_failures_raise(card, monkeypatch):
+    """No fallback: a launch the C entry refuses (here n_split 0) and a
+    failed build both raise, and neither counts a launch or a plain
+    call."""
+    from repro_torch.kernels import _build
+
+    q, k, v = (t.to(card) for t in _qkv(0, 1, 8, 2, 1, 300, 128,
+                                        torch.bfloat16))
+    fak.reset_counts()
+    with monkeypatch.context() as m:
+        m.setattr(fak, "decode_splits", lambda *a: 0)
+        with pytest.raises(RuntimeError, match="repro_flash_decode_bf16"):
+            fak.flash_attention_fwd(q, k, v, causal=False)
+
+    def broken():
+        raise RuntimeError("nvcc failed on flash_decode_sm90.cu")
+    with monkeypatch.context() as m:
+        m.setattr(_build, "library", broken)
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            fak.flash_attention_fwd(q, k, v, causal=False)
+    assert (fak.launches, fak.decode_launches, fak.plain_calls) == (0, 0, 0)
 
 
 @pytest.mark.parametrize("d,dtype,item", [

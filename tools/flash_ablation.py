@@ -4,8 +4,9 @@
 Builds `src/repro_torch/csrc/flash_fwd_sm90.cu` as it is and three variants
 of it, each with one piece of work taken out, into separate libraries
 under `build/flash_ablation/`, and times them against each other in turns
-(full, variants, variants reversed, full) at the serving prefill shape and
-at a long non-causal one:
+(full, variants, variants reversed, full) at the llama serving prefill
+shape (B=4, Hq=32, Hkv=8, S=2048, causal) and at llama-3.2-vision's
+cross-attention prefill (Sq=2048 over Skv=6404 vision keys, not causal):
 
   no_p_lo     PV without the P_lo product (P rounded to bf16: 2/3 of the
               tensor-core work);
@@ -13,8 +14,10 @@ at a long non-causal one:
   no_loads    the producer fills the K/V ring once per CTA and then only
               signals it, so no K/V bytes move after the first stages.
 
-The variants give wrong results by construction; only `full` is checked
-against the plain version. Also prints each build's ptxas spill bytes,
+The no_softmax and no_loads variants give wrong results by construction;
+`full` is checked against the plain version, and `full` and `no_p_lo`
+print their largest error against it (out and lse): what rounding P to
+bf16 costs. Also prints each build's ptxas spill bytes,
 `scaled_dot_product_attention`'s time at the same shapes, and the card's
 name, power limit and SM clock.
 
@@ -49,7 +52,7 @@ def variants(text: str) -> dict[str, str]:
     no_loads = text
     for op in ("k", "v"):
         no_loads = sub(
-            rf"(\n\s*)(mbar_expect_tx\(bars\.full_{op}\(s\), L::kTile\);"
+            rf"(\n\s*)(mbar_expect_tx\(bars\.full_{op}\(s\), L::kKVTile\);"
             rf".*?&tm_{op}, [^;]*;)",
             rf"\1if (r < kStages) {{ \2 }} else {{ "
             rf"mbar_arrive(bars.full_{op}(s)); }}", no_loads)
@@ -125,17 +128,23 @@ def main() -> None:
             times.append(e0.elapsed_time(e1))
         return statistics.median(times)
 
-    for B, Hq, Hkv, S, causal in ((4, 32, 8, 2048, True),
-                                  (1, 32, 8, 8192, False)):
+    for B, Hq, Hkv, Sq, Skv, causal in ((4, 32, 8, 2048, 2048, True),
+                                        (4, 32, 8, 2048, 6404, False)):
         q, k, v = (torch.randn(sh, generator=gen, device=dev).bfloat16()
-                   for sh in ((B, Hq, S, 128), (B, Hkv, S, 128),
-                              (B, Hkv, S, 128)))
-        if S <= 2048:
-            out, _ = call(libs["full"], q, k, v, causal)
-            want, _ = fak.flash_attention_fwd_plain(q, k, v, causal=causal)
+                   for sh in ((B, Hq, Sq, 128), (B, Hkv, Skv, 128),
+                              (B, Hkv, Skv, 128)))
+        shape = f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} causal={causal}"
+        want, want_lse = fak.flash_attention_fwd_plain(q, k, v, causal=causal)
+        for name in ("full", "no_p_lo"):
+            out, lse = call(libs[name], q, k, v, causal)
             err = (out.float() - want.float()).abs().max().item()
-            if err > 2e-2:
+            lse_err = (lse - want_lse).abs().max().item()
+            print(f"[ablation error] {shape} variant={name} "
+                  f"max_abs_err={err:.3e} lse_max_abs_err={lse_err:.3e}",
+                  flush=True)
+            if name == "full" and err > 2e-2:
                 raise SystemExit(f"full != plain: {err}")
+        del want, want_lse, out, lse
         order = list(libs) + list(libs)[::-1]
         times: dict[str, list[float]] = {name: [] for name in libs}
         for name in order:
@@ -143,13 +152,12 @@ def main() -> None:
                                                            causal)))
         lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=causal, enable_gqa=True))
-        flops = fak.bound_flops(B, Hq, S, S, 128, 128, causal=causal)
+        flops = fak.bound_flops(B, Hq, Sq, Skv, 128, 128, causal=causal)
         for name, ts in times.items():
-            print(f"[ablation] B={B} Hq={Hq} Hkv={Hkv} S={S} causal={causal} "
-                  f"variant={name} ms={','.join(f'{t:.4f}' for t in ts)} "
+            print(f"[ablation] {shape} variant={name} "
+                  f"ms={','.join(f'{t:.4f}' for t in ts)} "
                   f"TFLOP_s={flops / min(ts) / 1e9:.1f}", flush=True)
-        print(f"[ablation] B={B} Hq={Hq} Hkv={Hkv} S={S} causal={causal} "
-              f"sdpa_ms={lib_ms:.4f}", flush=True)
+        print(f"[ablation] {shape} sdpa_ms={lib_ms:.4f}", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=False).stdout.strip()
