@@ -152,6 +152,21 @@ Drives the port's main path on one CUDA card and checks every byte:
      then the example programs on the card: `examples/serving_torch.py`
      and `examples/train_with_failures_torch.py` at their defaults, each
      to its own OK line;
+ 18. the mesh (`mesh_phase`): phase 11's training shape on the card's
+     host mesh, (data 1, model 1), the state placed by
+     `launch.train.shard_state`, seq_parallel on, two steps whose losses
+     and every leaf equal the same steps without a mesh bit for bit;
+     `elastic_remesh` onto ("data",) (every leaf byte-identical, a third
+     step equal); the training CLI's drill and the serving CLI on the
+     mesh (`--mesh`: without it one device runs them unsharded, as
+     phases 8, 12 and 17 do; the served tokens equal the unsharded
+     server's); and three
+     dry-run cells on 256 / 512 fake devices in child processes
+     (llama3.2-3b x train_4k x single, kimi-k2 x decode_32k x multi,
+     rwkv6-7b x long_500k x single), their per-device bytes beside the
+     card's 80 GB. Phase 3 also times each flash case through the
+     operator `torch.ops.repro_torch.flash_attention_fwd` (`op_ms`,
+     `dispatch_us`: what the dispatcher adds, which the wrapper skips);
   5. a JSON line of per-kernel numbers (five rows: gf, xor, flash d=128,
      flash d=256, and the fp32 flash kernel at d = 64, 128 and 256, which
      no serve path runs; gf, xor and flash d=128 count their launches per
@@ -180,6 +195,7 @@ import resource
 import shutil
 import statistics
 import subprocess
+import os
 import sys
 import time
 
@@ -844,13 +860,13 @@ def routing_probe():
     from repro_torch.models import layers
     inner, calls = layers.moe_ffn, []
 
-    def probe(params, x, cfg):
+    def probe(params, x, cfg, mesh=None):
         z = x.float() @ params.router.float()
         _, idx = layers.top_k(torch.softmax(z, dim=-1),
                               cfg.moe.num_experts_per_tok)
         calls.append(dict(z=z, sets=idx.sort(dim=-1).values, x=x,
                           router=params.router))
-        return inner(params, x, cfg)
+        return inner(params, x, cfg, mesh)
 
     layers.moe_ffn = probe
     try:
@@ -2310,6 +2326,208 @@ def examples_phase() -> dict:
     return counts["train_with_failures_torch"]
 
 
+#: phase 18's dry-run cells: the training cell, expert parallelism over
+#: 512 ranks, and a recurrent state at 524288 tokens of context
+DRYRUN_CELLS = (("llama3.2-3b", "train_4k", "single"),
+                ("kimi-k2-1t-a32b", "decode_32k", "multi"),
+                ("rwkv6-7b", "long_500k", "single"))
+CARD_BYTES = 80e9
+
+
+def dryrun_start() -> list:
+    """Starts phase 18's dry-run cells, one process each (on the CPU: the
+    production meshes are fake; the card stays this process's)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    return [(cell, time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cell[0], "--shape", cell[1], "--mesh", cell[2], "--force"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)) for cell in DRYRUN_CELLS]
+
+
+def dryrun_finish(procs: list, timeout: float = 420) -> None:
+    """Phase 18 (e): each cell's artifact, per device beside the card's 80
+    GB; exits on a cell that fails or outlives `timeout`."""
+    for (arch, shape, mesh), t0, proc in procs:
+        try:
+            out, err = proc.communicate(
+                timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"dry-run {arch} x {shape} x {mesh}: no result in "
+                 f"{timeout} s")
+        check(proc.returncode == 0, f"dry-run {arch} x {shape} x {mesh}: "
+              f"{err[-2000:]}")
+        r = json.loads(out[out.index("{"):])
+        check(r["status"] == "ok", f"dry-run {arch} x {shape}: {r}")
+        mem, coll = r["memory"], r["collectives"]
+        peak = mem.get("peak_bytes_per_device", -1)
+        phase("mesh dryrun", cell=f"{arch} x {shape} x {mesh}",
+              devices=r["num_devices"], kind=r["kind"],
+              argument_GB=f"{mem['argument_size_in_bytes'] / 1e9:.3f}",
+              peak_GB=f"{peak / 1e9:.3f}",
+              of_card=f"{peak / CARD_BYTES:.3f}",
+              TFLOP=f"{r['cost']['flops'] / 1e12:.3f}",
+              collective_GB=json.dumps({k: round(v / 1e9, 4) for k, v in
+                                        coll["bytes_by_op"].items()}),
+              collective_count=json.dumps(coll["count_by_op"]),
+              cross_pod_GB=f"{coll['cross_pod_bytes'] / 1e9:.4f}",
+              kernel_ops=r["op_audit"]["custom"], ops=r["op_count"],
+              trace_seconds=r["trace_seconds"],
+              wall_seconds=f"{time.perf_counter() - t0:.1f}")
+
+
+def mesh_phase(seed: int) -> dict:
+    """Phase 18: the port on the card's host mesh (one device: (data 1,
+    model 1)). (a) phase 11's training shape, the state placed by
+    `shard_state`, seq_parallel on: two steps, losses and every updated
+    leaf bit for bit those of the same steps without a mesh; (b)
+    `elastic_remesh` onto a ("data",) mesh, every leaf byte-identical, and
+    a third step equal to the unsharded one's; (c) the training CLI with
+    its failure drill (degraded restore, rebuild, the restored state
+    placed on the mesh again); (d) the serving CLI against the unsharded
+    server; (e) three dry-run cells. Exits on a miss; returns the phase's
+    launches per kernel."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokenDataset
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.kernels import gf_bitmatmul as gfk
+    from repro_torch.kernels import xor_reduce as xrk
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params, layers, uniform_segments
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+
+    dryruns = dryrun_start()
+    dev = torch.device("cuda")
+    mesh = make_host_mesh()
+    cfg = dataclasses.replace(
+        get_config("llama3.2-3b"), name=f"llama3.2-3b-{TRAIN['layers']}l",
+        segments=uniform_segments("attn", TRAIN["layers"]))
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    ds = SyntheticTokenDataset(DataConfig(cfg.vocab_size, S, B, seed=0))
+    ocfg = AdamWConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup_steps"],
+                       total_steps=10, clip_norm=TRAIN["clip_norm"])
+
+    def fresh():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        return init_train_state(cfg, gen, dev)
+
+    def run(state, step_fn, steps):
+        out = []
+        for i in steps:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, *ds.batch(i))
+            loss = float(m["loss"])
+            out.append((loss, float(m["grad_norm"]),
+                        (time.perf_counter() - t0) * 1e3))
+        return out
+
+    def leaves_of(state):
+        from torch.distributed.tensor import DTensor
+        for lst in ([p.data for p in state.params], state.opt["master"],
+                    state.opt["m"], state.opt["v"]):
+            for t in lst:
+                yield t.to_local() if isinstance(t, DTensor) else t
+
+    # (a) two steps without a mesh, then on the host mesh
+    tcfg = TrainConfig(accum=TRAIN["accum"], remat=TRAIN["remat"])
+    plain = fresh()
+    plain_steps = run(plain, make_train_step(cfg, ocfg, tcfg), (0, 1))
+    fak.reset_counts()
+    sharded = train_cli.shard_state(fresh(), mesh)
+    mesh_steps = run(sharded, make_train_step(
+        cfg, ocfg, dataclasses.replace(tcfg, seq_parallel=True), mesh=mesh),
+        (0, 1))
+    flash_mesh = fak.launches
+    same = sum(not torch.equal(a, b) for a, b in
+               zip(leaves_of(plain), leaves_of(sharded)))
+    phase("mesh train", mesh=json.dumps(dict(zip(mesh.mesh_dim_names,
+                                                 mesh.shape))),
+          layers=cfg.num_layers, batch=B, seq=S, accum=TRAIN["accum"],
+          seq_parallel=True,
+          losses=json.dumps([f"{x[0]:.6f}" for x in mesh_steps]),
+          step_ms=json.dumps([f"{x[2]:.1f}" for x in mesh_steps]),
+          unsharded_step_ms=json.dumps([f"{x[2]:.1f}" for x in plain_steps]),
+          flash_launches=flash_mesh, leaves_differing=same)
+    check([x[:2] for x in mesh_steps] == [x[:2] for x in plain_steps],
+          f"sharded losses {mesh_steps} != unsharded {plain_steps}")
+    check(same == 0, f"{same} leaves differ after the sharded steps")
+    check(flash_mesh == 2 * FLASH_PER_STEP, f"flash launches {flash_mesh}")
+
+    # (b) elastic re-mesh onto ("data",), then a third step
+    flat = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+    train_cli.elastic_remesh(sharded, flat)
+    moved = sum(not torch.equal(a, b) for a, b in
+                zip(leaves_of(plain), leaves_of(sharded)))
+    third_plain = run(plain, make_train_step(cfg, ocfg, tcfg), (2,))
+    third = run(sharded, make_train_step(cfg, ocfg, tcfg, mesh=flat), (2,))
+    phase("mesh remesh", to=json.dumps(dict(zip(flat.mesh_dim_names,
+                                                flat.shape))),
+          leaves_differing=moved, loss=f"{third[0][0]:.6f}",
+          step_ms=f"{third[0][2]:.1f}",
+          unsharded_step_ms=f"{third_plain[0][2]:.1f}")
+    check(moved == 0, f"elastic_remesh changed {moved} leaves")
+    check(third[0][:2] == third_plain[0][:2],
+          f"step after the re-mesh {third} != {third_plain}")
+    del plain, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the training CLI on the host mesh, with its failure drill
+    for k in (gfk, xrk, fak):
+        k.reset_counts()
+    t0 = time.perf_counter()
+    losses = train_cli.run(["--smoke", "--steps", "30", "--batch", "2",
+                            "--seq", "64", "--ckpt-every", "10",
+                            "--fail-node", "5", "--fail-at", "20",
+                            "--log-every", "10", "--mesh"])
+    cli = {"gf_bitmatmul": gfk.launches, "xor_reduce": xrk.launches}
+    phase("mesh train cli", seconds=f"{time.perf_counter() - t0:.2f}",
+          steps=len(losses), first=f"{losses[0]:.4f}",
+          last=f"{losses[-1]:.4f}", kernel_launches=json.dumps(cli))
+    check(len(losses) == 30 and losses[-1] < losses[0],
+          f"training CLI on the mesh: losses {losses[0]} -> {losses[-1]}")
+    check(cli["gf_bitmatmul"] > 0 and cli["xor_reduce"] > 0,
+          f"the drill's coding kernels: {cli}")
+
+    # (d) the serving CLI on the host mesh against the unsharded server
+    args = dict(batch=2, requests=4, prompt_len=16, gen=6, seed=0)
+    t0 = time.perf_counter()
+    served = serve_cli.run(["--arch", "llama3.2-3b", "--batch", "2",
+                            "--requests", "4", "--prompt-len", "16",
+                            "--gen", "6", "--mesh"])
+    t_mesh = time.perf_counter() - t0
+    scfg = get_config("llama3.2-3b", smoke=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    want = serve_cli.serve(scfg, init_params(scfg, gen, dev), device=dev,
+                           **args)
+    t_plain = time.perf_counter() - t0
+    equal = all(torch.equal(a, b) for a, b in zip(served["tokens"],
+                                                  want["tokens"]))
+    phase("mesh serve cli", seconds=f"{t_mesh:.2f}",
+          unsharded_seconds=f"{t_plain:.2f}", tokens_equal=equal)
+    check(equal, "the server on the mesh and without it differ")
+
+    # (e) the dry-run cells
+    dryrun_finish(dryruns)
+    return {"flash_attention": flash_mesh, **cli}
+
+
 def leaves(node):
     """The tensors of a nested dict / tuple / list tree, in sorted-key
     order."""
@@ -2537,6 +2755,11 @@ def main() -> None:
                 enable_gqa=True)
         ms = time_ms(kernel, reps)
         dms = time_ms(kernel, reps, spin=True)
+        # the same launch through the operator `torch.ops.repro_torch.
+        # flash_attention_fwd` (the dry-run's route): what the
+        # dispatcher costs a call, which the wrapper does not pay
+        oms = time_ms(lambda: torch.ops.repro_torch.flash_attention_fwd(
+            q, k, v, bool(causal), int(window)), reps)
         pms = time_ms(plain, plain_reps)
         lms = time_ms(library, reps)
         ldms = time_ms(library, reps, spin=True)
@@ -2556,6 +2779,8 @@ def main() -> None:
               lse_max_abs_err=f"{lse_err:.3e}", tol_out=tol,
               tol_lse=lse_tol,
               **{key: f"{x:.3e}" for key, x in tail.items()}, ms=f"{ms:.4f}",
+              op_ms=f"{oms:.4f}",
+              dispatch_us=f"{(oms - ms) * 1e3:.1f}",
               plain_ms=f"{pms:.3f}", library_ms=f"{lms:.4f}",
               bound_ms=f"{b:.4f}", bound_by=by,
               bound_share=f"{b / ms:.4f}", vs_library=f"{ms / lms:.3f}",
@@ -2563,7 +2788,8 @@ def main() -> None:
               device_bound_share=f"{b / dms:.4f}",
               device_vs_library=f"{dms / ldms:.3f}",
               TFLOP_s=f"{ops / (ms / 1e3) / 1e12:.1f}")
-        return dict(max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms,
+        return dict(max_abs_err=err, ms=ms, op_ms=oms,
+                    device_ms=dms, plain_ms=pms,
                     bound_ms=b, bound_by=by, bound_share=b / ms,
                     library_ms=lms, library_device_ms=ldms,
                     lse_max_abs_err=lse_err, **split, **tail)
@@ -2812,6 +3038,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     example = examples_phase()
 
+    # 18. the mesh: sharded training and serving on the card's host mesh,
+    # elastic re-mesh, and dry-run cells on 256 / 512 fake devices -------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_path = mesh_phase(2505)
+    phase("mesh phase", seconds=f"{time.perf_counter() - t0:.2f}",
+          vmrss_GB=f"{vmrss_gb():.3f}")
+
     # 5. results ----------------------------------------------------------------
     fp32_launches = {"serve": flash["fp32_launches"],
                      "serve_smoke": smoke_counts["fp32_launches"],
@@ -2846,7 +3081,8 @@ def main() -> None:
                                "serve_phi35moe": moe_path["gf_bitmatmul"],
                                "serve_rwkv6": rwkv_path["gf_bitmatmul"],
                                "serve_vision": vision_path["gf_bitmatmul"],
-                               "encode_hubert": hubert_path["gf_bitmatmul"]},
+                               "encode_hubert": hubert_path["gf_bitmatmul"],
+                               "train_cli_mesh": mesh_path["gf_bitmatmul"]},
              library_ms=None, **gf_main),
         dict(name="xor_reduce", kernel="xor_fold_kernel", route="cuda",
              source="src/repro_torch/csrc/coding_kernels.cu",
@@ -2860,7 +3096,8 @@ def main() -> None:
                                "serve_phi35moe": moe_path["xor_reduce"],
                                "serve_rwkv6": rwkv_path["xor_reduce"],
                                "serve_vision": vision_path["xor_reduce"],
-                               "encode_hubert": hubert_path["xor_reduce"]},
+                               "encode_hubert": hubert_path["xor_reduce"],
+                               "train_cli_mesh": mesh_path["xor_reduce"]},
              library_ms=None, **xor_main),
         dict(name="flash_attention", kernel="flash_fwd_sm90_kernel",
              route="cuda", source="src/repro_torch/csrc/flash_fwd_sm90.cu",
@@ -2873,7 +3110,8 @@ def main() -> None:
                                "serve_rwkv6": prefill(rwkv_path),
                                "serve_vision": prefill(vision_path),
                                "encode_hubert": prefill(hubert_path),
-                               "example_train": prefill(example)},
+                               "example_train": prefill(example),
+                               "train_mesh": mesh_path["flash_attention"]},
              **flash_main, **flash_grad,
              # the row's numbers are the llama prefill shape's; phase 16's
              # cross-attention prefill shape, with every key of a row, here

@@ -42,7 +42,10 @@ from __future__ import annotations
 import ctypes
 import threading
 
+import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from .autotune import H100_SMS
@@ -223,10 +226,10 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 def unmasked_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
     """(query, key) pairs of one head that the masks keep."""
-    i = torch.arange(Sq, dtype=torch.int64)
-    hi = torch.clamp(i, max=Skv - 1) if causal else torch.full_like(i, Skv - 1)
-    lo = torch.clamp(i - window + 1, min=0) if window else torch.zeros_like(i)
-    return int((hi - lo + 1).clamp_min(0).sum())
+    i = np.arange(Sq, dtype=np.int64)    # numpy: no dispatch mode sees it
+    hi = np.minimum(i, Skv - 1) if causal else np.full_like(i, Skv - 1)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros_like(i)
+    return int(np.maximum(hi - lo + 1, 0).sum())
 
 
 def bound_flops(B: int, Hq: int, Sq: int, Skv: int, dk: int, dv: int, *,
@@ -284,14 +287,22 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, Hq, Sq, dk), k (B, Hkv, Skv, dk), v (B, Hkv, Skv, dv) ->
     (out (B, Hq, Sq, dv) in q's dtype, lse (B, Hq, Sq) fp32): one launch
     of the dtype's prefill kernel, or on the decode route (`is_decode`)
-    one of the decode kernel and one of its combine."""
-    global launches, fp32_launches, decode_launches, plain_calls
+    one of the decode kernel and one of its combine: the CUDA
+    implementation of the operator `torch.ops.repro_torch.
+    flash_attention_fwd`, called directly (the dispatcher's boxed call
+    into a Python kernel cost 17-35 us a call beside an H100, PERF.md
+    §6). A fake tensor (the dry-run's) takes the operator, on
+    any device: its fake implementation gives the shapes of the card's
+    route, its FLOP formula the kernel's operations."""
+    global plain_calls
     _check(q, k, v, window)
-    decode = is_decode(q, k)
+    if isinstance(q, FakeTensor):
+        return torch.ops.repro_torch.flash_attention_fwd(
+            q, k, v, bool(causal), int(window))
     if q.device.type == "cpu":
         with _COUNT_LOCK:
             plain_calls += 1
-        if decode:       # at the slices of an H100 SXM (132 SMs)
+        if is_decode(q, k):       # at the slices of an H100 SXM (132 SMs)
             return flash_decode_plain(
                 q, k, v, causal=causal, window=window,
                 n_split=decode_splits(q.shape[0] * k.shape[1], k.shape[2],
@@ -302,6 +313,17 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd runs on cuda or cpu, "
                          f"got {q.device}")
+    return _launch(q, k, v, bool(causal), int(window), checked=True)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: int, checked: bool = False
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The operator's CUDA implementation: the route's kernel launch."""
+    global launches, fp32_launches, decode_launches
+    if not checked:
+        _check(q, k, v, window)
+    decode = is_decode(q, k)
     B, Hq, Sq, dk = q.shape
     Hkv, Skv, dv = k.shape[1], k.shape[2], v.shape[-1]
     if q.dtype not in _ENTRY:
@@ -346,3 +368,32 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mode = (bool(causal), Sq == 1)
         mode_launches[mode] = mode_launches.get(mode, 0) + 1
     return out, lse
+
+
+# ---------------------------------------------------------------------------
+# The operator: `torch.ops.repro_torch.flash_attention_fwd(q, k, v, causal,
+# window) -> (out, lse)`, defined with `torch.library.Library` (one schema,
+# the CUDA implementation `_launch`, a fake implementation and a FLOP
+# formula) rather than `torch.library.custom_op`, whose Python wrapper
+# adds more host time still. Tracing (fake tensors) goes through it; the
+# wrapper's CUDA route calls `_launch` itself.
+# ---------------------------------------------------------------------------
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int window) -> (Tensor, Tensor)")
+_LIB.impl("flash_attention_fwd", _launch, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::flash_attention_fwd", lib=_LIB)
+def _launch_fake(q, k, v, causal, window):
+    B, Hq, Sq, _ = q.shape
+    return (q.new_empty((B, Hq, Sq, v.shape[-1])),
+            q.new_empty((B, Hq, Sq), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _launch_flops(q_shape, k_shape, v_shape, causal, window, *args,
+                  **kwargs) -> int:
+    return bound_flops(q_shape[0], q_shape[1], q_shape[2], k_shape[2],
+                       q_shape[3], v_shape[3], causal=causal, window=window)

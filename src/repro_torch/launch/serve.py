@@ -2,9 +2,15 @@
 of `repro.launch.serve`).
 
 `serve` runs the request loop on a model the caller built (random weights,
-or a checkpoint restored through `ckpt.CheckpointManager`); `run` is the
-command line. Requests are served in batches: each batch is one prefill of
-its prompts and `gen - 1` decode steps against the padded cache.
+or a checkpoint restored through `ckpt.CheckpointManager`), placed on a
+device mesh or not; `run` is the command line. It serves on the host
+mesh (`launch.mesh.make_host_mesh`) where the default process group has
+several ranks, or with `--mesh`, the parameters placed by
+`partitioning.param_shardings` (`models.model.shard_model`) and each
+batch's cache by `partitioning.cache_shardings`, as the reference does;
+one device without `--mesh` serves unsharded (the same tokens).
+Requests are served in batches: each batch is one prefill of its prompts
+and `gen - 1` decode steps against the padded cache.
 
 A `cross_attn` arch (llama-3.2-vision-11b) is served with stub vision
 embeddings, drawn for each batch after its prompts; an encoder-only arch
@@ -24,9 +30,12 @@ import time
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.launch.mesh import entry_mesh
 from repro_torch.models import init_params
+from repro_torch.models import partitioning as PT
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import Transformer, pad_cache_to, resolve_device
+from repro_torch.models.model import (Transformer, pad_cache_to,
+                                      resolve_device, shard_model)
 from repro_torch.train import make_serve_decode, make_serve_prefill
 
 
@@ -35,9 +44,21 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def shard_cache(cache, mesh):
+    """A prefill's cache placed by `partitioning.cache_shardings` (the
+    layout the sharded decode step reads)."""
+    def place(tree, sh):
+        if isinstance(tree, dict):
+            return {k: place(v, sh[k]) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(place(a, b) for a, b in zip(tree, sh))
+        return tree.redistribute(mesh, sh.placements)
+    return place(cache, PT.cache_shardings(cache, mesh))
+
+
 def serve(cfg: ModelConfig, model: Transformer, *, batch: int,
           requests: int, prompt_len: int, gen: int, seed: int,
-          device: str | torch.device = "cuda") -> dict:
+          device: str | torch.device = "cuda", mesh=None) -> dict:
     """Serve `requests` random prompts of `prompt_len` tokens (drawn from
     `seed`), `gen` greedy tokens each, `batch` at a time. A model with
     `cross_attn` blocks gets each batch's stub vision input, (B,
@@ -45,12 +66,17 @@ def serve(cfg: ModelConfig, model: Transformer, *, batch: int,
     batch's prompts (the reference's `launch/specs.vision_inputs`).
     Returns the generated tokens and host-clock timings: `prefill_s` per
     batch and `decode_s` per batch (its `gen - 1` steps), each ended by a
-    device synchronise."""
+    device synchronise. With `mesh` the model is placed on it
+    (`shard_model`): every rank draws the same prompts, and gets the same
+    tokens."""
     device = resolve_device(device)
     if not cfg.has_decode:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
-    prefill = make_serve_prefill(cfg)
-    decode = make_serve_decode(cfg)
+    prefill = make_serve_prefill(cfg, mesh)
+    decode = make_serve_decode(cfg, mesh)
+
+    def gathered(logits):
+        return logits if mesh is None else logits.full_tensor()
     rng = torch.Generator(device=device)
     rng.manual_seed(seed)
     P, G = prompt_len, gen
@@ -70,13 +96,15 @@ def serve(cfg: ModelConfig, model: Transformer, *, batch: int,
         logits, cache = prefill(model, prompts, vision)
         del vision
         cache = pad_cache_to(cache, cfg, S_max=P + G)
-        tok = torch.argmax(logits, dim=-1)[:, None]
+        if mesh is not None:
+            cache = shard_cache(cache, mesh)
+        tok = torch.argmax(gathered(logits), dim=-1)[:, None]
         _sync(device)
         t1 = time.perf_counter()
         toks = [tok]
         for i in range(G - 1):
             logits, cache = decode(model, tok, cache, P + i)
-            tok = torch.argmax(logits, dim=-1)[:, None]
+            tok = torch.argmax(gathered(logits), dim=-1)[:, None]
             toks.append(tok)
         _sync(device)
         t2 = time.perf_counter()
@@ -104,16 +132,21 @@ def run(argv=None) -> dict:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", action="store_true",
+                    help="serve on the host mesh also with one device")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
     device = resolve_device(args.device)
+    mesh = entry_mesh(args.mesh, args.device)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     model = init_params(cfg, gen, device)
+    if mesh is not None:
+        model = shard_model(model, mesh)
     return serve(cfg, model, batch=args.batch, requests=args.requests,
                  prompt_len=args.prompt_len, gen=args.gen, seed=args.seed,
-                 device=device)
+                 device=device, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -1,17 +1,25 @@
-"""The training entry point of the port: data pipeline + train step + EC
-checkpointing (port of `repro.launch.train`).
+"""The training entry point of the port: data pipeline + sharded train
+step + EC checkpointing (port of `repro.launch.train`).
 
-Runs on the card unless `--device cpu` is given. Fault-tolerance drills
-the paper's operations end to end, as the reference does:
+Runs on the card unless `--device cpu` is given. It trains on the host
+mesh (`launch.mesh.make_host_mesh`: the devices of the default process
+group) where that group has several ranks, or with `--mesh`; the state is
+placed on it by `shard_state` and the batches by
+`partitioning.input_sharding`. One device without `--mesh` trains
+unsharded, the same arithmetic bit for bit without DTensor's dispatch
+(the reference always builds its host mesh, which costs XLA nothing).
+Fault-tolerance drills the paper's operations end to end, as the
+reference does:
 
-  * periodic EC-striped checkpoint (UniLRC over the serialized state),
+  * periodic EC-striped checkpoint (UniLRC over the serialized state,
+    gathered whole from its shards),
   * `--fail-node N --fail-at S`: node loss + crash-restart from the
     latest checkpoint (a degraded restore, zero cross-cluster bytes) +
-    background reconstruction,
-  * straggler injection on restore reads.
-
-The reference's mesh (`make_host_mesh`, `shard_state`, `elastic_remesh`,
-`input_sharding`) waits for ROADMAP A10: the state lives on one device.
+    background reconstruction, the restored state placed on the mesh
+    again,
+  * straggler injection on restore reads,
+  * elastic re-mesh (`elastic_remesh`): a live state moved onto another
+    mesh, values unchanged.
 
 The data pipeline yields token ids and nothing else, so an arch that needs
 another input exits naming it, where the reference's entry point fails
@@ -36,11 +44,33 @@ from repro_torch.core.codes import make_unilrc
 from repro_torch.data import DataConfig, SyntheticTokenDataset
 from repro_torch.device import resolve_device
 from repro_torch.io import TorchBackend
+from repro_torch.launch.mesh import entry_mesh
+from repro_torch.models import partitioning as PT
 from repro_torch.optim import AdamWConfig
 from repro_torch.topo import Topology
 from repro_torch.train import (TrainConfig, init_train_state,
                                make_train_step, train_state_from_jax,
                                train_state_to_tree)
+from repro_torch.train.step import TrainState
+
+
+def state_shardings(state: TrainState, mesh) -> dict:
+    from repro_torch.launch.specs import train_state_shardings
+    return train_state_shardings(state, mesh)
+
+
+def shard_state(state: TrainState, mesh) -> TrainState:
+    """The state placed on `mesh` by `state_shardings`, in place: its
+    parameters and optimizer lists become DTensors (every rank holding
+    the same whole values; nothing is sent)."""
+    from repro_torch.launch.specs import place_train_state
+    return place_train_state(state, mesh)
+
+
+def elastic_remesh(state: TrainState, new_mesh) -> TrainState:
+    """Re-shard a live train state onto a different mesh (pod loss /
+    elastic scale-down). Values are preserved; only placement changes."""
+    return shard_state(state, new_mesh)
 
 
 def input_missing(cfg) -> str | None:
@@ -76,6 +106,8 @@ def run(argv=None) -> list[float]:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", action="store_true",
+                    help="train on the host mesh also with one device")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -84,7 +116,9 @@ def run(argv=None) -> list[float]:
         raise SystemExit(f"{cfg.name}: this entry point cannot train it: "
                          f"{missing}")
     device = resolve_device(args.device)
-    print(f"arch={cfg.name}  device={device}")
+    mesh = entry_mesh(args.mesh, args.device)
+    print(f"arch={cfg.name}  device={device}  mesh="
+          f"{mesh and dict(zip(mesh.mesh_dim_names, mesh.shape))}")
 
     # --- EC checkpoint layer (the paper's technique) -----------------------
     topo = Topology(args.clusters, args.nodes_per_cluster)
@@ -102,12 +136,15 @@ def run(argv=None) -> list[float]:
     ocfg = AdamWConfig(lr=args.lr, warmup_steps=10, total_steps=args.steps,
                        clip_norm=1.0)
     tcfg = TrainConfig(accum=args.accum)
-    step_fn = make_train_step(cfg, ocfg, tcfg)
+    step_fn = make_train_step(cfg, ocfg, tcfg, mesh=mesh)
+
+    def placed(state):
+        return state if mesh is None else shard_state(state, mesh)
 
     def fresh_state():
         gen = torch.Generator(device=device)
         gen.manual_seed(args.seed)
-        return init_train_state(cfg, gen, device)
+        return placed(init_train_state(cfg, gen, device))
 
     state = fresh_state()
     step = 0
@@ -135,7 +172,7 @@ def run(argv=None) -> list[float]:
                 raise RuntimeError("UniLRC degraded restore must be "
                                    "cluster-local")
             del state
-            state = train_state_from_jax(cfg, restored, device)
+            state = placed(train_state_from_jax(cfg, restored, device))
             del restored
             step = report.step
             rebuilt = mgr.reconstruct_failures()
@@ -144,6 +181,11 @@ def run(argv=None) -> list[float]:
             continue
 
         tokens, labels = ds.batch(step)
+        if mesh is not None:
+            tokens, labels = (
+                PT.distribute(torch.as_tensor(t, device=device),
+                              PT.input_sharding(mesh, 2))
+                for t in (tokens, labels))
         state, metrics = step_fn(state, tokens, labels)
         loss = float(metrics["loss"])
         losses.append(loss)

@@ -40,6 +40,7 @@ from torch import nn
 
 from repro_torch.kernels import flash_attention as fa
 
+from . import partitioning as PT
 from .config import ModelConfig, MoEConfig, _rg_width
 
 
@@ -83,6 +84,139 @@ def _normal(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
             * scale).to(torch.bfloat16)
 
 
+# ---------------------------------------------------------------------------
+# Sharding on a device mesh
+# ---------------------------------------------------------------------------
+#
+# With `mesh=None` (every path but the sharded ones) each function below
+# returns its input untouched, so the unsharded model runs the same ops as
+# before. With a `DeviceMesh` the model's parameters and activations are
+# DTensors: `cst` pins an activation's placements where the reference's
+# `cst` pins its sharding, and DTensor's sharding propagation inserts the
+# collectives between. Where it cannot shard an op (attention, the MoE
+# routing and capacity dispatch, the WKV and RG-LRU scans, the embedding
+# gather, the loss, shifts along the sequence), or shards it at a cost
+# the reference does not pay (the row-parallel products), the block's
+# math runs on each device's local shards in a `local_map` region whose
+# placements are the reference's.
+
+def _cst_placements(shape: tuple, mesh, spec: tuple) -> tuple:
+    """The placements of `cst(x, mesh, *spec)` for an x of `shape`."""
+    ba = PT.batch_axes(mesh)
+    spec = tuple(ba if ax == "B" else ax for ax in spec)
+    return PT.placements(PT._guard(spec, tuple(shape), mesh), mesh)
+
+
+def cst(x: torch.Tensor, mesh, *spec) -> torch.Tensor:
+    """Activation sharding constraint (Megatron pattern), the reference's
+    `cst`: x (a DTensor) redistributed to `spec`, whose entries are "B"
+    (the batch axes, ("pod", "data") when present), an axis name or None;
+    axes absent from the mesh or not dividing the dim are dropped. Without
+    a mesh, x itself."""
+    if mesh is None:
+        return x
+    pl = _cst_placements(tuple(x.shape), mesh, spec)
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Pin.apply(x, mesh, pl)
+    if tuple(x.placements) == pl:
+        return x
+    return x.redistribute(mesh, pl)
+
+
+class _Pin(torch.autograd.Function):
+    """`cst` under autograd: the activation and its gradient both take the
+    pinned placements, as a sharding constraint binds a value and its
+    cotangent in the reference. (A gradient left to DTensor may arrive
+    with its rows split over `model` where the forward split none, and a
+    flattened strided split is one DTensor's matmul strategies cannot
+    place.)"""
+
+    @staticmethod
+    def forward(ctx, x, mesh, pl):
+        ctx.pin = (mesh, pl)
+        return x if tuple(x.placements) == pl else x.redistribute(mesh, pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, pl = ctx.pin
+        return (g if tuple(g.placements) == pl else g.redistribute(mesh, pl),
+                None, None)
+
+
+def _axis(mesh, name: str) -> tuple[int, int]:
+    """(this rank's coordinate, size) on mesh axis `name`; (0, 1) when the
+    mesh has no such axis."""
+    if name not in mesh.mesh_dim_names:
+        return 0, 1
+    return (mesh.get_local_rank(name),
+            mesh.shape[mesh.mesh_dim_names.index(name)])
+
+
+def _partial_on(pl: tuple, mesh, names) -> tuple:
+    """`pl` with `Partial()` on the mesh axes `names` where it replicates:
+    the gradient placements of an input that every rank on those axes
+    reads whole but uses with its own shard of the batch (or of the
+    experts, or of the heads)."""
+    from torch.distributed.tensor import Partial, Replicate
+    return tuple(Partial() if n in names and isinstance(p, Replicate) else p
+                 for n, p in zip(mesh.mesh_dim_names, pl))
+
+
+def _on_shards(fn, mesh, args: tuple, in_pl: tuple, out_pl,
+               grad_pl: tuple | None = None):
+    """fn(*local shards) under `local_map`: each DTensor argument is
+    redistributed to its `in_pl` entry (None for a non-tensor) and handed
+    over as this rank's local tensor; the outputs come back as DTensors of
+    `out_pl`. `grad_pl` gives the placements of the arguments' gradients
+    where they differ from `in_pl`."""
+    from torch.distributed.tensor import Placement
+    from torch.distributed.tensor.experimental import local_map
+    # one output: a list of placements; several: a tuple of them
+    out_pl = (list(out_pl) if all(isinstance(p, Placement) for p in out_pl)
+              else tuple(list(p) for p in out_pl))
+    return local_map(fn, out_placements=out_pl, in_placements=in_pl,
+                     in_grad_placements=grad_pl, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
+def _along_seq(fn, mesh, x: torch.Tensor) -> torch.Tensor:
+    """fn(x) for an op along the sequence (a shift, a pad, a roll), which
+    no mesh splits: on a mesh, fn of each device's shard."""
+    if mesh is None:
+        return fn(x)
+    pl = tuple(x.placements)
+    return _on_shards(fn, mesh, (x,), (pl,), pl)
+
+
+def _reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    """All-reduce of a local tensor over `group` (functional collective:
+    traceable under fake tensors)."""
+    from torch.distributed import _functional_collectives as funcol
+    out = funcol.all_reduce(t, op, group)
+    return out.wait() if hasattr(out, "wait") else out
+
+
+def _row_parallel(x: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
+    """x @ w for a row-parallel weight w (its rows over `model`), pinned
+    to (B, None, None) as the reference's `cst` pins the product. On a
+    mesh each device multiplies its columns of x by its rows of w (w whole
+    over the batch axes, its gradient a partial sum there) and the
+    partial products are summed over `model`. (Left to DTensor, the
+    backward's dgrad gathers w whole over `model` and repeats the product
+    on every device of the group: 16x its FLOPs on the production mesh.)"""
+    if mesh is None:
+        return x @ w
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    xpl = _cst_placements(tuple(x.shape), mesh, ("B", None, "model"))
+    split = Shard(x.dim() - 1) in xpl
+    wpl = tuple(Shard(0) if n == "model" and split else Replicate()
+                for n in mesh.mesh_dim_names)
+    opl = tuple(Partial() if p == Shard(x.dim() - 1) else p for p in xpl)
+    out = _on_shards(torch.matmul, mesh, (x, w), (xpl, wpl), opl,
+                     (xpl, _partial_on(wpl, mesh, PT.batch_axes(mesh))))
+    return cst(out, mesh, "B", None, None)
+
+
 class SwiGLU(nn.Module):
     """The reference's `swiglu` (forward) with its weights; built with a
     generator it is the reference's `init_swiglu`."""
@@ -100,11 +234,12 @@ class SwiGLU(nn.Module):
         self.w_up = weight(d, f, scale=d ** -0.5)
         self.w_down = weight(f, d, scale=f ** -0.5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
         gate = x @ self.w_gate
         up = x @ self.w_up
         act = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
-        return act @ self.w_down
+        act = cst(act, mesh, "B", None, "model")
+        return _row_parallel(act, self.w_down, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -172,7 +307,7 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, window: int = 0) -> torch.Tensor:
+                    causal: bool, window: int = 0, mesh=None) -> torch.Tensor:
     """q: (B, Hq, Sq, dk), k: (B, Hkv, Skv, dk), v: (B, Hkv, Skv, dv) ->
     (B, Hq, Sq, dv), differentiable in q, k and v. Routed as the
     reference's `_flash_fn` routes: (dk, dv) in `fa.HEAD_DIMS` (64, 128
@@ -187,11 +322,66 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     `flash_attention_bwd`, the reference's `_flash_bwd_impl`; it runs
     only where autograd records the call (an input requires grad and
     grad mode is on), so under `torch.no_grad` or `inference_mode` the
-    call is the forward alone and saves nothing."""
+    call is the forward alone and saves nothing. With a mesh, q, k and v
+    are DTensors placed by `_shard_attn_heads`, and each device attends
+    its own shards (`_flash_on_shards`)."""
+    if mesh is not None:
+        return _flash_on_shards(q, k, v, causal, window, mesh)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, bool(causal), int(window))
     return _flash_forward(q, k, v, causal, window)[0]
+
+
+def _whole_heads(x: torch.Tensor, mesh, heads: int) -> torch.Tensor:
+    """x (B, S, H x hd), pinned by the reference's `cst` over `model`
+    wherever that divides H x hd, which may cut a head: a DTensor split
+    that cuts a head cannot become a split of the heads, so such an x is
+    gathered over `model` before it is viewed as heads."""
+    if mesh is None or heads % PT.axis_sizes(mesh).get("model", 1) == 0:
+        return x
+    return cst(x, mesh, "B", None, None)
+
+
+def _shard_attn_heads(mesh, q, k, v):
+    """Pin the attention-internal placements (B, H, S, hd), the
+    reference's `_shard_attn_heads`: heads over `model` where the head
+    count divides it (k and v whose kv heads do not divide it fall back to
+    replicated heads, per tensor, as `cst` drops the axis), else the batch
+    alone."""
+    if mesh is None:
+        return q, k, v
+    spec = (("B", "model", None, None)
+            if q.shape[1] % PT.axis_sizes(mesh).get("model", 1) == 0
+            else ("B", None, None, None))
+    return tuple(cst(t, mesh, *spec) for t in (q, k, v))
+
+
+def _flash_on_shards(q, k, v, causal: bool, window: int, mesh):
+    """`flash_attention` on each device's shards (the kernel on the card):
+    q, k and v split alike (batch, and heads or not), or q's heads over
+    `model` with k and v whole, in which case each device attends with the
+    kv heads its q heads read, and the k, v gradients are partial sums
+    over `model`."""
+    def attend(q, k, v):
+        return flash_attention(q, k, v, causal=causal, window=window)
+    qpl, kpl = tuple(q.placements), tuple(v.placements)
+    if tuple(k.placements) != kpl:
+        k = k.redistribute(mesh, kpl)
+    if qpl == kpl:
+        return _on_shards(attend, mesh, (q, k, v), (qpl, kpl, kpl), qpl)
+    r, m = _axis(mesh, "model")
+    hq_l, group = q.shape[1] // m, q.shape[1] // k.shape[1]
+    if hq_l % group and group % hq_l:        # no clean head map: batch only
+        q = q.redistribute(mesh, kpl)
+        return _on_shards(attend, mesh, (q, k, v), (kpl, kpl, kpl), kpl)
+    h0, nk = r * hq_l // group, max(1, hq_l // group)
+
+    def attend_heads(q, k, v):
+        return attend(q, k[:, h0:h0 + nk], v[:, h0:h0 + nk])
+    gpl = _partial_on(kpl, mesh, ("model",))
+    return _on_shards(attend_heads, mesh, (q, k, v), (qpl, kpl, kpl), qpl,
+                      (qpl, gpl, gpl))
 
 
 def _pair_mask(q0: int, nq: int, k0: int, nk: int, causal: bool,
@@ -331,14 +521,15 @@ class Attention(nn.Module):
 
 def attention_block(params: Attention, x: torch.Tensor, cfg: ModelConfig,
                     mode: str, cache: dict | None, pos: int | None, *,
-                    window: int = 0
+                    window: int = 0, mesh=None
                     ) -> tuple[torch.Tensor, dict | None]:
     """x: (B, S, D). Returns (attn_out, new_cache). With `window` (the
     `local_attn` kind) queries see the last `window` keys, and the cache
     is a rotating window: position p lives in slot p % window. In decode
     mode the new token's k/v are written into `cache` in place (the
     reference returns updated copies), and the same tensors come back as
-    the new cache."""
+    the new cache. With a mesh, decode runs `_decode_on_shards` against a
+    cache placed by `partitioning.cache_shardings`."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     hq, hkv = cfg.num_heads_padded, cfg.num_kv_heads_padded
@@ -347,6 +538,9 @@ def attention_block(params: Attention, x: torch.Tensor, cfg: ModelConfig,
     v = x @ params.wv
     if cfg.qkv_bias:
         q, k, v = q + params.bq, k + params.bk, v + params.bv
+    q = _whole_heads(cst(q, mesh, "B", None, "model"), mesh, hq)
+    k = _whole_heads(cst(k, mesh, "B", None, "model"), mesh, hkv)
+    v = _whole_heads(cst(v, mesh, "B", None, "model"), mesh, hkv)
     q = q.reshape(B, S, hq, hd).transpose(1, 2)
     k = k.reshape(B, S, hkv, hd).transpose(1, 2)
     v = v.reshape(B, S, hkv, hd).transpose(1, 2)
@@ -355,29 +549,114 @@ def attention_block(params: Attention, x: torch.Tensor, cfg: ModelConfig,
         where = torch.arange(pos, pos + 1, device=x.device)
         q = apply_rope(q, where, cfg.rope_theta)
         k = apply_rope(k, where, cfg.rope_theta)
-        slot = pos % window if window else pos
-        k_cache = _write_cache(cache["k"], k, slot)
-        v_cache = _write_cache(cache["v"], v, slot)
-        if window:
-            out = _decode_window(q, k_cache, v_cache, pos, window)
+        if mesh is not None:
+            out = _decode_on_shards(mesh, q, k, v, cache["k"], cache["v"],
+                                    pos, window)
+            new_cache = {"k": cache["k"], "v": cache["v"]}
         else:
-            out = decode_attention(q, k_cache, v_cache, pos)
-        new_cache = {"k": k_cache, "v": v_cache}
+            slot = pos % window if window else pos
+            k_cache = _write_cache(cache["k"], k, slot)
+            v_cache = _write_cache(cache["v"], v, slot)
+            if window:
+                out = _decode_window(q, k_cache, v_cache, pos, window)
+            else:
+                out = decode_attention(q, k_cache, v_cache, pos)
+            new_cache = {"k": k_cache, "v": v_cache}
     else:
+        q, k, v = _shard_attn_heads(mesh, q, k, v)
         positions = torch.arange(S, device=x.device)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        out = flash_attention(q, k, v, causal=cfg.causal, window=window)
+        out = flash_attention(q, k, v, causal=cfg.causal, window=window,
+                              mesh=mesh)
         new_cache = None
         if mode == "prefill" and window:
             keep = min(window, S)
-            new_cache = {"k": _roll_tail(k, keep, window),
-                         "v": _roll_tail(v, keep, window)}
+            new_cache = {name: _along_seq(
+                lambda t: _roll_tail(t, keep, window), mesh, t)
+                for name, t in (("k", k), ("v", v))}
         elif mode == "prefill":
             new_cache = {"k": k, "v": v}
 
     out = out.transpose(1, 2).reshape(B, S, hq * hd)
-    return out @ params.wo, new_cache
+    out = cst(out, mesh, "B", None, "model")
+    return _row_parallel(out, params.wo, mesh), new_cache
+
+
+def _cache_layout(mesh, cache: torch.Tensor, seq_dim: int
+                  ) -> tuple[tuple, tuple, int, int]:
+    """(the cache's placements, those of the decode step's other inputs:
+    the cache's batch split and nothing else, this rank's coordinate and
+    the split count along the cache's sequence dim). A decode cache is
+    split as `partitioning.cache_shardings` splits it: batch over the
+    batch axes, the sequence over `model`."""
+    from torch.distributed.tensor import Replicate, Shard
+    cpl = tuple(cache.placements)
+    if any(p not in (Replicate(), Shard(0), Shard(seq_dim)) for p in cpl):
+        raise ValueError(f"decode cache placed {cpl}; place it with "
+                         f"partitioning.cache_shardings")
+    bpl = tuple(p if p == Shard(0) else Replicate() for p in cpl)
+    split = Shard(seq_dim) in cpl
+    r, m = _axis(mesh, "model") if split else (0, 1)
+    return cpl, bpl, r, m
+
+
+def _decode_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, keep: torch.Tensor,
+                    group) -> torch.Tensor:
+    """Single-token attention against this rank's slice of a cache split
+    along its sequence (flash-decoding): fp32 scores of the visible slots
+    (`keep`), then the max, the exp-sum and the weighted values combined
+    over `group`."""
+    B, Hq, _, dk = q.shape
+    Hkv = k_cache.shape[1]
+    qg = q.reshape(B, Hkv, Hq // Hkv, 1, dk)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(),
+                     k_cache.float()) * dk ** -0.5
+    s = torch.where(keep, s, -torch.inf)
+    mx = _reduce(s.amax(dim=-1, keepdim=True), "max", group)
+    p = torch.exp(s - mx)
+    den = _reduce(p.sum(dim=-1, keepdim=True), "sum", group)
+    acc = _reduce(torch.einsum("bhgqk,bhkd->bhgqd", p, v_cache.float()),
+                  "sum", group)
+    return (acc / den).reshape(B, Hq, 1, v_cache.shape[-1]).to(q.dtype)
+
+
+def _visible(pos: int, window: int, off: int, n: int, device
+             ) -> torch.Tensor:
+    """Which of the cache slots off .. off + n - 1 a decode step at `pos`
+    sees: positions up to pos, or for a rotating window cache the slots
+    whose age is under the window (`_decode_window`'s rule)."""
+    j = torch.arange(off, off + n, device=device)
+    if window:
+        return (pos % window - j) % window <= min(pos, window - 1)
+    return j <= pos
+
+
+def _decode_on_shards(mesh, q, k, v, k_cache, v_cache, pos: int,
+                      window: int) -> torch.Tensor:
+    """The decode step of `attention_block` on each device's shards: the
+    new k, v written into the slice of the cache that holds slot `pos`
+    (in place), then the step's attention: `decode_attention` /
+    `_decode_window` where the sequence is whole, else `_decode_partial`
+    over `model`."""
+    cpl, bpl, r, m = _cache_layout(mesh, k_cache, 2)
+    group = mesh.get_group("model") if m > 1 else None
+    slot = pos % window if window else pos
+
+    def step(q, k, v, kc, vc):
+        n = kc.shape[2]
+        off = r * n
+        if off <= slot < off + n:
+            _write_cache(kc, k, slot - off)
+            _write_cache(vc, v, slot - off)
+        if m == 1:
+            return (_decode_window(q, kc, vc, pos, window) if window
+                    else decode_attention(q, kc, vc, pos))
+        return _decode_partial(q, kc, vc,
+                               _visible(pos, window, off, n, q.device), group)
+    return _on_shards(step, mesh, (q, k, v, k_cache, v_cache),
+                      (bpl, bpl, bpl, cpl, cpl), bpl)
 
 
 def _write_cache(cache_arr: torch.Tensor, new: torch.Tensor,
@@ -478,7 +757,7 @@ class MLA(nn.Module):
 
 
 def mla_block(params: MLA, x: torch.Tensor, cfg: ModelConfig, mode: str,
-              cache: dict | None, pos: int | None
+              cache: dict | None, pos: int | None, mesh=None
               ) -> tuple[torch.Tensor, dict | None]:
     """x: (B, S, D). Returns (out, new_cache). Attention runs on the
     absorbed latent: q (B, H, S, kv_lora + rope) against one key head
@@ -494,11 +773,13 @@ def mla_block(params: MLA, x: torch.Tensor, cfg: ModelConfig, mode: str,
     H = cfg.num_heads_padded
     qk = c.qk_nope_head_dim + c.qk_rope_head_dim
 
-    ql = rms_norm(x @ params.w_dq, params.q_norm, cfg.rms_eps)
+    # the latents whole on every device (their gradients too: `cst`)
+    ql = rms_norm(cst(x @ params.w_dq, mesh, "B", None, None),
+                  params.q_norm, cfg.rms_eps)
     q = (ql @ params.w_uq).reshape(B, S, H, qk)
     q_nope = q[..., :c.qk_nope_head_dim]
     q_rope = q[..., c.qk_nope_head_dim:].transpose(1, 2)    # (B, H, S, r)
-    dkv = x @ params.w_dkv
+    dkv = cst(x @ params.w_dkv, mesh, "B", None, None)
     ckv = rms_norm(dkv[..., :c.kv_lora_rank], params.kv_norm, cfg.rms_eps)
     k_rope = dkv[..., c.kv_lora_rank:][:, None]             # (B, 1, S, r)
     # absorb W_uk: q_lat (B, H, S, kv_lora), bf16 as the reference's einsum
@@ -509,12 +790,17 @@ def mla_block(params: MLA, x: torch.Tensor, cfg: ModelConfig, mode: str,
         q_rope = apply_rope(q_rope, where, cfg.rope_theta)
         k_rope = apply_rope(k_rope, where, cfg.rope_theta)[:, 0]
         ckv_cache, kr_cache = cache["ckv"], cache["kr"]
-        ckv_cache[:, pos:pos + 1] = ckv.to(ckv_cache.dtype)
-        kr_cache[:, pos:pos + 1] = k_rope.to(kr_cache.dtype)
         qf = torch.cat([q_lat, q_rope], dim=-1)
-        kf = torch.cat([ckv_cache, kr_cache], dim=-1)[:, None]
-        out = decode_attention(qf * qk ** -0.5 * qf.shape[-1] ** 0.5, kf,
-                               ckv_cache[:, None], pos)
+        if mesh is not None:
+            out = _mla_decode_on_shards(
+                mesh, qf * qk ** -0.5 * qf.shape[-1] ** 0.5, ckv, k_rope,
+                ckv_cache, kr_cache, pos)
+        else:
+            ckv_cache[:, pos:pos + 1] = ckv.to(ckv_cache.dtype)
+            kr_cache[:, pos:pos + 1] = k_rope.to(kr_cache.dtype)
+            kf = torch.cat([ckv_cache, kr_cache], dim=-1)[:, None]
+            out = decode_attention(qf * qk ** -0.5 * qf.shape[-1] ** 0.5, kf,
+                                   ckv_cache[:, None], pos)
         new_cache = {"ckv": ckv_cache, "kr": kr_cache}
     else:
         positions = torch.arange(S, device=x.device)
@@ -522,14 +808,40 @@ def mla_block(params: MLA, x: torch.Tensor, cfg: ModelConfig, mode: str,
         k_rope = apply_rope(k_rope, positions, cfg.rope_theta)[:, 0]
         qf = torch.cat([q_lat, q_rope], dim=-1)
         kf = torch.cat([ckv, k_rope], dim=-1)[:, None]      # (B, 1, S, 288)
+        qf, kf, vf = _shard_attn_heads(mesh, qf, kf, ckv[:, None])
         out = flash_attention(qf * qk ** -0.5 * qf.shape[-1] ** 0.5, kf,
-                              ckv[:, None], causal=cfg.causal)
+                              vf, causal=cfg.causal, mesh=mesh)
         new_cache = ({"ckv": ckv, "kr": k_rope} if mode == "prefill"
                      else None)
 
     o = torch.einsum("bhsr,hrv->bshv", out, params.w_uv)
     o = o.reshape(B, S, H * c.v_head_dim)
-    return o @ params.wo, new_cache
+    o = cst(o, mesh, "B", None, "model")
+    return _row_parallel(o, params.wo, mesh), new_cache
+
+
+def _mla_decode_on_shards(mesh, qf, ckv, kr, ckv_cache, kr_cache,
+                          pos: int) -> torch.Tensor:
+    """MLA's decode step on each device's shards of the latent cache
+    (`_decode_on_shards` for one key head concat(ckv, kr) and one value
+    head ckv): the new latent written at `pos`, then the attention of the
+    scaled queries `qf`."""
+    cpl, bpl, r, m = _cache_layout(mesh, ckv_cache, 1)
+    group = mesh.get_group("model") if m > 1 else None
+
+    def step(qf, ckv, kr, ckv_c, kr_c):
+        n = ckv_c.shape[1]
+        off = r * n
+        if off <= pos < off + n:
+            ckv_c[:, pos - off:pos - off + 1] = ckv.to(ckv_c.dtype)
+            kr_c[:, pos - off:pos - off + 1] = kr.to(kr_c.dtype)
+        kf = torch.cat([ckv_c, kr_c], dim=-1)[:, None]
+        if m == 1:
+            return decode_attention(qf, kf, ckv_c[:, None], pos)
+        return _decode_partial(qf, kf, ckv_c[:, None],
+                               _visible(pos, 0, off, n, qf.device), group)
+    return _on_shards(step, mesh, (qf, ckv, kr, ckv_cache, kr_cache),
+                      (bpl, bpl, bpl, cpl, cpl), bpl)
 
 
 # ---------------------------------------------------------------------------
@@ -583,7 +895,7 @@ class MoE(nn.Module):
                                  gen, dev)
 
 
-def moe_ffn(params: MoE, x: torch.Tensor, cfg: ModelConfig
+def moe_ffn(params: MoE, x: torch.Tensor, cfg: ModelConfig, mesh=None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out (B, S, D), aux): the reference's `moe_ffn`.
 
@@ -595,18 +907,79 @@ def moe_ffn(params: MoE, x: torch.Tensor, cfg: ModelConfig
     the (E, B x C, D) dispatch. The combine is deterministic: each token
     adds its kept experts' weighted outputs in expert order, one bf16 add
     each, as the reference's scatter-add applies its updates; no atomics.
-    aux is the Switch load-balance loss E * sum_e f_e p_e."""
+    aux is the Switch load-balance loss E * sum_e f_e p_e.
+
+    With a mesh (expert parallelism), the routing runs on each device's
+    batch shard, the router whole (`_moe_route`), and each device
+    dispatches, runs and
+    combines the experts it holds, E / model of them, for the tokens of
+    its batch shard (`_moe_experts`); the partial outputs are summed over
+    `model` by `cst`, where the reference's `cst` pins the combine."""
     m = cfg.moe
-    B, S, D = x.shape
     E, K = m.num_experts, m.num_experts_per_tok
-    C = moe_capacity(m, S)
+    C = moe_capacity(m, x.shape[1])
 
     # fp32 (the router is bf16 after a train step, as the reference casts
     # it, and its einsum promotes it back)
-    probs = torch.softmax(x.float() @ params.router.float(), dim=-1)
+    x = cst(x, mesh, "B", None, None)
+
+    def route(x, router):
+        probs = torch.softmax(x.float() @ router.float(), dim=-1)
+        return (probs, *_moe_route(probs, K))
+    weights = (params.w_gate, params.w_up, params.w_down)
+    if mesh is None:
+        probs, chosen, topi = route(x, params.router)
+        out = _moe_experts(x, chosen, topi, *weights, C=C, e0=0)
+    else:
+        from torch.distributed.tensor import Replicate, Shard
+        batch = PT.batch_axes(mesh)
+        ppl = _cst_placements(tuple(x.shape), mesh, ("B", None, None))
+        rpl = (Replicate(),) * mesh.ndim        # the router whole
+        probs, chosen, topi = _on_shards(
+            route, mesh, (x, params.router), (ppl, rpl), (ppl, ppl, ppl),
+            (ppl, _partial_on(rpl, mesh, batch)))
+        r, n = _axis(mesh, "model")
+        e_split = E % n == 0
+        e_l = E // n if e_split else E
+        wpl = tuple(Shard(0) if name == "model" and e_split else Replicate()
+                    for name in mesh.mesh_dim_names)
+        opl = _partial_on(ppl, mesh, ("model",) if e_split else ())
+        gin = _partial_on(ppl, mesh, ("model",) if e_split else ())
+        gw = _partial_on(wpl, mesh, batch)
+        out = _on_shards(
+            lambda x, c, t, wg, wu, wd: _moe_experts(
+                x, c, t, wg, wu, wd, C=C, e0=r * e_l if e_split else 0),
+            mesh, (x, chosen, topi, *weights), (ppl, ppl, ppl) + (wpl,) * 3,
+            opl, (gin, gin, ppl) + (gw,) * 3)
+        out = cst(out, mesh, "B", None, None)
+    if m.num_shared_experts:
+        out = out + params.shared(x, mesh)
+
+    # Switch-style aux loss
+    f = (chosen > 0).float().mean(dim=(0, 1)) / K
+    aux = E * torch.sum(f * probs.mean(dim=(0, 1)))
+    return out, aux
+
+
+def _moe_route(probs: torch.Tensor, K: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (chosen (B, S, E): each token's renormalised top-K weights at
+    their experts, 0 elsewhere; topi (B, S, K): those experts)."""
     topv, topi = top_k(probs, K)
     topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
-    chosen = torch.zeros_like(probs).scatter(-1, topi, topv)
+    return torch.zeros_like(probs).scatter(-1, topi, topv), topi
+
+
+def _moe_experts(x: torch.Tensor, chosen: torch.Tensor, topi: torch.Tensor,
+                 w_gate: torch.Tensor, w_up: torch.Tensor,
+                 w_down: torch.Tensor, *, C: int, e0: int) -> torch.Tensor:
+    """The dispatch, expert FFNs and combine of experts e0 .. e0 + E_l - 1
+    (E_l = w_gate.shape[0]; every expert when e0 = 0 and E_l = E): each
+    token's output from those of its experts that kept it."""
+    B, S, D = x.shape
+    E, E_l = chosen.shape[-1], w_gate.shape[0]
+    if E_l != E:
+        chosen = chosen[..., e0:e0 + E_l]
     # per (row, expert): the top C tokens by routing weight
     score = torch.where(chosen > 0, chosen, -1.0).transpose(1, 2)
     gate_c, idx_c = top_k(score, C)                              # (B, E, C)
@@ -614,33 +987,35 @@ def moe_ffn(params: MoE, x: torch.Tensor, cfg: ModelConfig
 
     rows = torch.arange(B, device=x.device)[:, None, None]
     xe = x[rows, idx_c]                                          # (B,E,C,D)
-    xe = xe.transpose(0, 1).reshape(E, B * C, D)
-    gate = torch.bmm(xe, params.w_gate)
-    up = torch.bmm(xe, params.w_up)
+    xe = xe.transpose(0, 1).reshape(E_l, B * C, D)
+    gate = torch.bmm(xe, w_gate)
+    up = torch.bmm(xe, w_up)
     act = F.silu(gate.float()).to(x.dtype) * up
-    ye = torch.bmm(act, params.w_down).reshape(E, B, C, D).transpose(0, 1)
+    ye = torch.bmm(act, w_down).reshape(E_l, B, C, D).transpose(0, 1)
     ye = ye * w_c[..., None].to(ye.dtype)                        # (B,E,C,D)
 
     # combine: token (b, s)'s slot in expert e, or -1, then its K experts'
     # rows in expert order
-    slot = torch.full((B, E, S), -1, dtype=torch.long, device=x.device)
-    slot.scatter_(2, idx_c, torch.arange(C, device=x.device).expand(B, E, C))
+    slot = torch.full((B, E_l, S), -1, dtype=torch.long, device=x.device)
+    slot.scatter_(2, idx_c,
+                  torch.arange(C, device=x.device).expand(B, E_l, C))
     experts = topi.sort(dim=-1).values                           # (B, S, K)
+    K = experts.shape[-1]
+    if E_l != E:                        # this device's experts only
+        local = experts - e0
+        mine = (local >= 0) & (local < E_l)
+        experts = local.clamp(0, E_l - 1)
     kslot = slot.transpose(1, 2).gather(2, experts)              # (B, S, K)
+    if E_l != E:
+        kslot = torch.where(mine, kslot, -1)
     flat = (experts * C + kslot.clamp_min(0)).reshape(B, S * K, 1)
-    picked = ye.reshape(B, E * C, D).gather(1, flat.expand(B, S * K, D))
+    picked = ye.reshape(B, E_l * C, D).gather(1, flat.expand(B, S * K, D))
     picked = picked.reshape(B, S, K, D)
     live = (kslot >= 0)[..., None]
     out = torch.zeros((B, S, D), dtype=ye.dtype, device=x.device)
     for j in range(K):
         out = out + torch.where(live[:, :, j], picked[:, :, j], 0.0)
-    if m.num_shared_experts:
-        out = out + params.shared(x)
-
-    # Switch-style aux loss
-    f = (chosen > 0).float().mean(dim=(0, 1)) / K
-    aux = E * torch.sum(f * probs.mean(dim=(0, 1)))
-    return out, aux
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -683,10 +1058,22 @@ class RG(nn.Module):
 def _rg_ab(params: RG, u: torch.Tensor
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-step decay a_t and input term b_t in fp32. u: (..., dr)."""
-    uf = u.float()
-    r = torch.sigmoid(uf @ params.w_rg.float())
-    i = torch.sigmoid(uf @ params.w_ig.float())
-    log_a = -8.0 * r * F.softplus(params.lam)                # c = 8
+    return _rg_gates(u, u, params.w_rg, params.w_ig, params.lam)
+
+
+def _rg_gates(u_all: torch.Tensor, u: torch.Tensor, w_rg: torch.Tensor,
+              w_ig: torch.Tensor, lam: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`_rg_ab` on columns: the gates' products take every channel of
+    `u_all`, and give the columns of `w_rg`, `w_ig` and `lam`, which are
+    those of `u` (the whole width, u_all being u, or one device's
+    shard)."""
+    uf = u_all.float()
+    r = torch.sigmoid(uf @ w_rg.float())
+    i = torch.sigmoid(uf @ w_ig.float())
+    if u is not u_all:
+        uf = u.float()
+    log_a = -8.0 * r * F.softplus(lam)                       # c = 8
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) \
         * (i * uf)
@@ -730,16 +1117,18 @@ def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
 
 
 def rg_block(params: RG, x: torch.Tensor, mode: str,
-             cache: dict | None) -> tuple[torch.Tensor, dict | None]:
+             cache: dict | None, mesh=None
+             ) -> tuple[torch.Tensor, dict | None]:
     """Griffin recurrent block: in-projections -> causal conv4 -> RG-LRU ->
     gelu gate -> out-projection. x: (B, S, D). Returns (out, new_cache).
     In decode mode (S = 1) the recurrence state (fp32) and the conv's last
     three inputs are written into `cache` in place, and the same tensors
     come back as the new cache; the step computes what a prefill computes
-    at its last position, conv rounding included."""
+    at its last position, conv rounding included. With a mesh the scan
+    runs on each device's shard of the recurrence width (`model`)."""
     B, S, _ = x.shape
-    u = x @ params.w_x
-    g = x @ params.w_gate
+    u = cst(x @ params.w_x, mesh, "B", None, "model")
+    g = cst(x @ params.w_gate, mesh, "B", None, "model")
     if mode == "decode":
         window = torch.cat([cache["conv"], u], dim=1)       # (B, 4, dr)
         # the prefill's arithmetic below, for its last position: four
@@ -758,15 +1147,74 @@ def rg_block(params: RG, x: torch.Tensor, mode: str,
         h = h[:, None]
     else:
         # causal conv of width 4 as shifted adds, in bf16 as the reference
-        cu = sum(params.conv_w[j] * F.pad(u, (0, 0, 3 - j, 0))[:, :S]
-                 for j in range(4)) + params.conv_b
-        a, b = _rg_ab(params, cu)                           # (B, S, dr)
-        _, h = linear_scan(a, b)
+        cu = (_rg_conv(u, params.conv_w, params.conv_b) if mesh is None
+              else _rg_conv_on_shards(params, u, mesh))
+        if mesh is None:
+            a, b = _rg_ab(params, cu)                       # (B, S, dr)
+            _, h = linear_scan(a, b)
+        else:
+            h = _rg_scan_on_shards(params, cu, mesh)
         new_cache = ({"state": h[:, -1], "conv": u[:, -3:]}
                      if mode == "prefill" else None)
     gate = F.gelu(g.float(), approximate="tanh").to(x.dtype)
     out = h.to(x.dtype) * gate
-    return out @ params.w_out, new_cache
+    return _row_parallel(out, params.w_out, mesh), new_cache
+
+
+def _rg_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+             ) -> torch.Tensor:
+    """The causal conv of width 4 over u (B, S, dr) as shifted adds."""
+    S = u.shape[1]
+    return sum(w[j] * F.pad(u, (0, 0, 3 - j, 0))[:, :S]
+               for j in range(4)) + b
+
+
+def _rg_conv_on_shards(params: RG, u: torch.Tensor, mesh) -> torch.Tensor:
+    """`_rg_conv` on each device's channels (u split as `cst` pins it)."""
+    from torch.distributed.tensor import Replicate, Shard
+    upl = tuple(u.placements)
+    split = Shard(2) in upl
+    wpl = tuple(Shard(1) if n == "model" and split else Replicate()
+                for n in mesh.mesh_dim_names)
+    bpl = tuple(Shard(0) if n == "model" and split else Replicate()
+                for n in mesh.mesh_dim_names)
+    batch = PT.batch_axes(mesh)
+    return _on_shards(_rg_conv, mesh, (u, params.conv_w, params.conv_b),
+                      (upl, wpl, bpl), upl,
+                      (upl, _partial_on(wpl, mesh, batch),
+                       _partial_on(bpl, mesh, batch)))
+
+
+def _rg_scan_on_shards(params: RG, cu: torch.Tensor, mesh) -> torch.Tensor:
+    """The RG-LRU gates and scan in train / prefill mode on each device's
+    channels (the recurrence width over `model`, column-parallel gates:
+    every channel of the conv output in, this device's columns of w_rg,
+    w_ig and lam): h (B, S, dr) split as cu is."""
+    from torch.distributed.tensor import Replicate, Shard
+    cpl = _cst_placements(tuple(cu.shape), mesh, ("B", None, "model"))
+    allpl = _cst_placements(tuple(cu.shape), mesh, ("B", None, None))
+    split = Shard(2) in cpl
+    wpl = tuple(Shard(1) if n == "model" and split else Replicate()
+                for n in mesh.mesh_dim_names)
+    lpl = tuple(Shard(0) if n == "model" and split else Replicate()
+                for n in mesh.mesh_dim_names)
+    batch = PT.batch_axes(mesh)
+
+    def scan(u_all, u, w_rg, w_ig, lam):
+        a, b = _rg_gates(u_all, u, w_rg, w_ig, lam)
+        return linear_scan(a, b)[1]
+    if _axis(mesh, "model")[1] == 1:        # every channel is here
+        return _on_shards(
+            lambda u, *w: scan(u, u, *w), mesh,
+            (cu, params.w_rg, params.w_ig, params.lam), (cpl, wpl, wpl, lpl),
+            cpl, (cpl,) + tuple(_partial_on(p, mesh, batch)
+                                for p in (wpl, wpl, lpl)))
+    return _on_shards(
+        scan, mesh, (cu, cu, params.w_rg, params.w_ig, params.lam),
+        (allpl, cpl, wpl, wpl, lpl), cpl,
+        (_partial_on(allpl, mesh, ("model",) if split else ()), cpl,
+         _partial_on(wpl, mesh, batch), _partial_on(wpl, mesh, batch),
+         _partial_on(lpl, mesh, batch)))
 
 
 # ---------------------------------------------------------------------------
@@ -864,49 +1312,82 @@ def _shifted(x: torch.Tensor) -> torch.Tensor:
 
 
 def rwkv_block(params: RWKV, x: torch.Tensor, cfg: ModelConfig, mode: str,
-               cache: dict | None) -> tuple[torch.Tensor, dict | None]:
+               cache: dict | None, mesh=None
+               ) -> tuple[torch.Tensor, dict | None]:
     """RWKV6 time-mix. x: (B, S, D). Returns (out, new_cache), the cache
     {"state": (B, H, hd, hd) fp32, "shift": (B, D)} O(1) in the sequence
     length. Train and prefill run `rwkv_chunk_scan` at `rwkv_chunk(S)`. In
     decode mode (S = 1) the exact one-step recurrence runs, and the new
     state and shift are written into `cache` in place (the same tensors
-    come back as the new cache)."""
+    come back as the new cache). With a mesh the projections are pinned
+    (B, S, D over `model`), as the reference pins them, and the scan (or
+    the step) runs on each device's batch rows and whole heads."""
     B, S, D = x.shape
     hd = cfg.rwkv_head_dim
-    H = D // hd
-    x_prev = cache["shift"][:, None] if mode == "decode" else _shifted(x)
+    x_prev = (cache["shift"][:, None] if mode == "decode"
+              else _along_seq(_shifted, mesh, x))
     mu = params.mu
 
     def mix(i):
         return x * mu[i] + x_prev * (1 - mu[i])
-    r = (mix(0) @ params.w_r).reshape(B, S, H, hd)
-    k = (mix(1) @ params.w_k).reshape(B, S, H, hd)
-    v = (mix(2) @ params.w_v).reshape(B, S, H, hd)
-    g = mix(4) @ params.w_g
+    r, k, v, g = (cst(mix(i) @ w, mesh, "B", None, "model") for i, w in
+                  ((0, params.w_r), (1, params.w_k), (2, params.w_v),
+                   (4, params.w_g)))
     # data-dependent log decay (<= 0): -exp(base + proj)
-    w_log = -torch.exp(params.decay_base +
-                       (mix(3) @ params.w_decay).float()).reshape(B, S, H, hd)
-    u = params.bonus.reshape(H, hd)
+    w_log = -torch.exp(params.decay_base + (mix(3) @ params.w_decay).float())
+
+    def heads(*ts):             # (b, s, d) -> (b, s, d // hd, hd)
+        return tuple(t.reshape(*t.shape[:2], -1, hd) for t in ts)
+
+    def step(r, k, v, w_log, u, state):
+        return _rwkv_step(*heads(r, k, v, w_log), u.reshape(-1, hd),
+                          state).reshape(r.shape)
+
+    def scan(r, k, v, w_log, u):
+        y, state = rwkv_chunk_scan(*heads(r, k, v, w_log),
+                                   u.reshape(-1, hd), rwkv_chunk(S))
+        return y.reshape(r.shape), state
+
+    def shards(fn, args, *pl):
+        return fn(*args) if mesh is None else _on_shards(fn, mesh, args, *pl)
+    xpl = upl = spl = cpl = gpl = None
+    if mesh is not None:
+        n = PT.axis_sizes(mesh).get("model", 1)
+        split = "model" if D % n == 0 and (D // n) % hd == 0 else None
+        xpl = _cst_placements((B, S, D), mesh, ("B", None, split))
+        upl = _cst_placements((D,), mesh, (split,))
+        spl = _cst_placements((B, D // hd, hd, hd), mesh, ("B", split))
+        if mode == "decode":
+            cpl = tuple(cache["state"].placements)
+        # every rank of a batch axis reads the bonus whole
+        gpl = (xpl,) * 4 + (_partial_on(upl, mesh, PT.batch_axes(mesh)),)
 
     if mode == "decode":
-        state = cache["state"]
-        r1, k1, v1 = (t[:, 0].float() for t in (r, k, v))
-        y = torch.einsum("bhk,bhkv->bhv", r1, state) + \
-            (r1 * (u * k1)).sum(-1, keepdim=True) * v1
-        new_state = torch.exp(w_log[:, 0])[..., None] * state + \
-            torch.einsum("bhk,bhv->bhkv", k1, v1)
-        state.copy_(new_state)
+        y = shards(step, (r, k, v, w_log, params.bonus, cache["state"]),
+                   (xpl,) * 4 + (upl, cpl), xpl)
         cache["shift"].copy_(x[:, -1])
         new_cache = cache
-        y = y.reshape(B, 1, D)
     else:
-        y, state = rwkv_chunk_scan(r, k, v, w_log, u, rwkv_chunk(S))
-        y = y.reshape(B, S, D)
+        y, state = shards(scan, (r, k, v, w_log, params.bonus),
+                          (xpl,) * 4 + (upl,), (xpl, spl), gpl)
         new_cache = ({"state": state, "shift": x[:, -1]}
                      if mode == "prefill" else None)
     y = rms_norm(y.to(x.dtype), params.ln_x, cfg.rms_eps)
     y = y * F.silu(g.float()).to(x.dtype)
-    return y @ params.w_o, new_cache
+    return _row_parallel(y, params.w_o, mesh), new_cache
+
+
+def _rwkv_step(r, k, v, w_log, u, state) -> torch.Tensor:
+    """The exact one-step WKV recurrence: r, k, v, w_log (B, 1, H, hd),
+    u (H, hd); `state` (B, H, hd, hd) fp32 is advanced in place. Returns
+    y (B, H, hd) fp32."""
+    r1, k1, v1 = (t[:, 0].float() for t in (r, k, v))
+    y = torch.einsum("bhk,bhkv->bhv", r1, state) + \
+        (r1 * (u * k1)).sum(-1, keepdim=True) * v1
+    new_state = torch.exp(w_log[:, 0])[..., None] * state + \
+        torch.einsum("bhk,bhv->bhkv", k1, v1)
+    state.copy_(new_state)
+    return y
 
 
 class RWKVChannel(nn.Module):
@@ -930,14 +1411,17 @@ class RWKVChannel(nn.Module):
 
 
 def rwkv_channel_mix(params: RWKVChannel, x: torch.Tensor, mode: str,
-                     cache: dict | None) -> tuple[torch.Tensor, dict | None]:
+                     cache: dict | None, mesh=None
+                     ) -> tuple[torch.Tensor, dict | None]:
     """relu(lerp(x, x_prev) W_k)^2 W_v. Returns (out, new_cache), the cache
     {"shift_c": (B, D)}; in decode mode the shift is written into `cache`
     in place."""
-    x_prev = cache["shift_c"][:, None] if mode == "decode" else _shifted(x)
+    x_prev = (cache["shift_c"][:, None] if mode == "decode"
+              else _along_seq(_shifted, mesh, x))
     h = x * params.mu_c + x_prev * (1 - params.mu_c)
-    act = torch.relu((h @ params.w_kc).float()).square().to(x.dtype)
-    out = act @ params.w_vc
+    kk = cst(h @ params.w_kc, mesh, "B", None, "model")
+    act = torch.relu(kk.float()).square().to(x.dtype)
+    out = _row_parallel(act, params.w_vc, mesh)
     if mode == "decode":
         cache["shift_c"].copy_(x[:, -1])
         return out, cache
@@ -965,7 +1449,7 @@ class CrossAttention(Attention):
 
 def cross_attention_block(params: CrossAttention, x: torch.Tensor,
                           cfg: ModelConfig, mode: str, cache: dict | None,
-                          vision: torch.Tensor | None
+                          vision: torch.Tensor | None, mesh=None
                           ) -> tuple[torch.Tensor, dict | None]:
     """Queries from the text stream, keys and values from the stub vision
     embeddings `vision` (B, Sv, D); no rope, no bias. Train and prefill
@@ -977,7 +1461,8 @@ def cross_attention_block(params: CrossAttention, x: torch.Tensor,
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     hq, hkv = cfg.num_heads_padded, cfg.num_kv_heads_padded
-    q = (x @ params.wq).reshape(B, S, hq, hd).transpose(1, 2)
+    q = _whole_heads(cst(x @ params.wq, mesh, "B", None, "model"), mesh,
+                     hq).reshape(B, S, hq, hd).transpose(1, 2)
     if mode == "decode" and cache is not None and "k" in cache:
         k, v = cache["k"], cache["v"]
         new_cache = cache
@@ -987,9 +1472,13 @@ def cross_attention_block(params: CrossAttention, x: torch.Tensor,
                              f"(B, {cfg.vision_seq}, {cfg.d_model}) in "
                              f"{mode} mode")
         vision = vision.to(params.wk.dtype)     # fp32 weights: promoted
-        k = (vision @ params.wk).reshape(B, -1, hkv, hd).transpose(1, 2)
-        v = (vision @ params.wv).reshape(B, -1, hkv, hd).transpose(1, 2)
+        k, v = (_whole_heads(cst(vision @ w, mesh, "B", None, "model"), mesh,
+                             hkv).reshape(B, -1, hkv, hd).transpose(1, 2)
+                for w in (params.wk, params.wv))
         new_cache = {"k": k, "v": v} if mode != "train" else None
-    out = flash_attention(q, k, v, causal=False)
-    out = out.transpose(1, 2).reshape(B, S, hq * hd) @ params.wo
+    q, k, v = _shard_attn_heads(mesh, q, k, v)
+    out = flash_attention(q, k, v, causal=False, mesh=mesh)
+    out = cst(out.transpose(1, 2).reshape(B, S, hq * hd), mesh, "B", None,
+              "model")
+    out = _row_parallel(out, params.wo, mesh)
     return torch.tanh(params.gate_attn).to(x.dtype) * out, new_cache

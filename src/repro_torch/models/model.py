@@ -38,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 
 from . import layers as L
+from . import partitioning as PT
 from .config import ModelConfig, _rg_width
 
 
@@ -79,37 +80,42 @@ class Block(nn.Module):
             self.mlp = L.SwiGLU(cfg.d_model, cfg.d_ff, gen, device)
 
     def forward(self, x, cfg: ModelConfig, mode: str, cache, pos,
-                vision=None):
+                vision=None, mesh=None):
         """-> (x, new_cache, aux): aux is the MoE load-balance loss of an
         `attn_moe` block, None for the other kinds. `vision` (B, Sv, D)
         feeds a `cross_attn` block's keys and values in train and prefill
         mode; the other kinds ignore it."""
-        h = L.rms_norm(x, self.norm1, cfg.rms_eps)
+        # with seq_parallel the residual stream's sequence is split over
+        # `model`: gathered before the mixer and the FFN (Megatron SP)
+        h = L.cst(L.rms_norm(x, self.norm1, cfg.rms_eps), mesh, "B", None,
+                  None)
         if self.kind == "rg":
-            h, new_cache = L.rg_block(self.rg, h, mode, cache)
+            h, new_cache = L.rg_block(self.rg, h, mode, cache, mesh)
         elif self.kind == "mla":
-            h, new_cache = L.mla_block(self.mla, h, cfg, mode, cache, pos)
+            h, new_cache = L.mla_block(self.mla, h, cfg, mode, cache, pos,
+                                       mesh)
         elif self.kind == "rwkv":
-            h, new_cache = L.rwkv_block(self.rwkv, h, cfg, mode, cache)
+            h, new_cache = L.rwkv_block(self.rwkv, h, cfg, mode, cache, mesh)
         elif self.kind == "cross_attn":
             h, new_cache = L.cross_attention_block(self.xattn, h, cfg, mode,
-                                                   cache, vision)
+                                                   cache, vision, mesh)
         else:
             window = cfg.window if self.kind == "local_attn" else 0
             h, new_cache = L.attention_block(self.attn, h, cfg, mode, cache,
-                                             pos, window=window)
+                                             pos, window=window, mesh=mesh)
         x = x + h
-        h = L.rms_norm(x, self.norm2, cfg.rms_eps)
+        h = L.cst(L.rms_norm(x, self.norm2, cfg.rms_eps), mesh, "B", None,
+                  None)
         aux = None
         if self.kind == "attn_moe":
-            h, aux = L.moe_ffn(self.moe, h, cfg)
+            h, aux = L.moe_ffn(self.moe, h, cfg, mesh)
         elif self.kind == "rwkv":
             # decode writes the channel-mix's shift into the same cache
-            h, c2 = L.rwkv_channel_mix(self.cmix, h, mode, cache)
+            h, c2 = L.rwkv_channel_mix(self.cmix, h, mode, cache, mesh)
             if mode == "prefill":
                 new_cache = {**new_cache, **c2}
         else:
-            h = self.mlp(h)
+            h = self.mlp(h, mesh)
             if self.kind == "cross_attn":
                 h = torch.tanh(self.xattn.gate_ffn).to(x.dtype) * h
         return x + h, new_cache, aux
@@ -161,37 +167,57 @@ class Transformer(nn.Module):
 
     def forward(self, inputs: torch.Tensor, *, mode: str = "train",
                 cache=None, pos: int | None = None, remat: str = "none",
-                vision: torch.Tensor | None = None):
+                vision: torch.Tensor | None = None, mesh=None,
+                seq_parallel: bool = False):
         """inputs: (B, S) token ids, or (B, S, D) embeddings (cast to bf16)
         when `cfg.embed_inputs` is False. vision: (B, vision_seq, D), the
         stub vision embeddings a `cross_attn` block attends to in train
         and prefill mode (decode reads their keys and values from the
         cache). Returns (logits, new_cache, aux).
 
-        Prefill and decode run under `torch.inference_mode()`. Train mode
+        Prefill and decode run under `torch.inference_mode()` (under
+        `torch.no_grad()` with a mesh). Train mode
         records autograd where the parameters require grad; `remat="block"`
         then checkpoints each superblock (`torch.utils.checkpoint`, the
         reference's `jax.checkpoint` of its scan body): the backward keeps
         only each superblock's input and runs the superblock again,
-        attention forward included."""
+        attention forward included.
+
+        mesh: a `DeviceMesh` over which the parameters are DTensors
+        (`shard_model`): activations are pinned as the reference's `cst`
+        pins them, and inputs that are not DTensors yet are split by
+        `partitioning.input_sharding_for` (each rank passing the whole
+        batch). `seq_parallel` splits the residual stream's sequence over
+        `model` in train mode (Megatron SP), as the reference's does."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"mode {mode!r}")
         if remat not in ("none", "block"):
             raise ValueError(f"remat {remat!r}; expected 'none' or 'block'")
         if mode == "decode" and (cache is None or pos is None):
             raise ValueError("decode needs a cache and a position")
+        # (DTensor views of parameters fail under inference_mode: a sharded
+        # prefill or decode runs under no_grad)
         with (contextlib.nullcontext() if mode == "train"
-              else torch.inference_mode()):
+              else torch.inference_mode() if mesh is None
+              else torch.no_grad()), replicating(mesh):
+            if mesh is not None:
+                inputs, vision = (None if t is None else shard_input(t, mesh)
+                                  for t in (inputs, vision))
             return self._forward(inputs, mode, cache, pos,
                                  remat == "block" and mode == "train",
-                                 vision)
+                                 vision, mesh,
+                                 "model" if seq_parallel and mode == "train"
+                                 else None)
 
-    def _forward(self, inputs, mode, cache, pos, remat: bool, vision):
+    def _forward(self, inputs, mode, cache, pos, remat: bool, vision,
+                 mesh=None, sp=None):
         cfg = self.cfg
         if cfg.embed_inputs:
-            x = self.embed[inputs.long()]
+            x = (self.embed[inputs.long()] if mesh is None
+                 else _embed_on_shards(self.embed, inputs, mesh))
         else:           # bf16, as the reference casts; fp32 weights promote
             x = inputs.to(torch.bfloat16)
+        x = L.cst(x, mesh, "B", sp, None)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         # per segment, per block of the superblock: each layer's new cache
         per_layer: list[list[list[dict]]] = [
@@ -204,7 +230,8 @@ class Transformer(nn.Module):
                 if remat:
                     # no randomness in a block: no RNG state to replay
                     x, aux_l = checkpoint(_superblock, x, blocks, cfg,
-                                          vision, use_reentrant=False,
+                                          vision, mesh, sp,
+                                          use_reentrant=False,
                                           preserve_rng_state=False)
                     if aux_l is not None:
                         aux_total = aux_total + aux_l
@@ -214,15 +241,18 @@ class Transformer(nn.Module):
                     if cache is not None:
                         lc = {name: t[li]
                               for name, t in cache[si][bi].items()}
-                    x, nc, aux_b = block(x, cfg, mode, lc, pos, vision)
+                    x, nc, aux_b = block(x, cfg, mode, lc, pos, vision, mesh)
+                    x = L.cst(x, mesh, "B", sp, None)
                     if aux_b is not None:
                         aux_total = aux_total + aux_b
                     per_layer[si][bi].append(nc)
-        x = L.rms_norm(x, self.final_norm, cfg.rms_eps)
+        x = L.cst(L.rms_norm(x, self.final_norm, cfg.rms_eps), mesh, "B",
+                  None, None)
         if cfg.tie_embeddings:
             logits = x @ self.embed.t()
         else:
             logits = x @ self.unembed
+        logits = L.cst(logits, mesh, "B", None, "model")
         if mode == "train":
             return logits, None, aux_total
         if mode == "decode":             # written in place: same tensors
@@ -234,12 +264,13 @@ class Transformer(nn.Module):
         return logits, new_cache, aux_total
 
 
-def _superblock(x, blocks, cfg: ModelConfig, vision):
+def _superblock(x, blocks, cfg: ModelConfig, vision, mesh=None, sp=None):
     """One superblock in train mode: its blocks in order. Returns x and
     the sum of its blocks' aux losses (None without an `attn_moe`)."""
     aux = None
     for block in blocks:
-        x, _, aux_b = block(x, cfg, "train", None, None, vision)
+        x, _, aux_b = block(x, cfg, "train", None, None, vision, mesh)
+        x = L.cst(x, mesh, "B", sp, None)
         if aux_b is not None:
             aux = aux_b if aux is None else aux + aux_b
     return x, aux
@@ -247,12 +278,114 @@ def _superblock(x, blocks, cfg: ModelConfig, vision):
 
 def forward(model: Transformer, inputs: torch.Tensor, *,
             mode: str = "train", cache=None, pos: int | None = None,
-            remat: str = "none", vision: torch.Tensor | None = None):
+            remat: str = "none", vision: torch.Tensor | None = None,
+            mesh=None, seq_parallel: bool = False):
     """inputs: (B, S) token ids, or (B, S, D) embeddings without an
     embedding table; vision: (B, vision_seq, D) for a `cross_attn` model.
+    mesh: the `DeviceMesh` of a model placed by `shard_model`.
     Returns (logits, new_cache, aux_loss)."""
     return model(inputs, mode=mode, cache=cache, pos=pos, remat=remat,
-                 vision=vision)
+                 vision=vision, mesh=mesh, seq_parallel=seq_parallel)
+
+
+# ---------------------------------------------------------------------------
+# On a device mesh
+# ---------------------------------------------------------------------------
+
+def replicating(mesh):
+    """Inside a sharded forward, plain tensors (positions, masks, the rope
+    table) mix with DTensors as replicated ones."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def shard_input(t: torch.Tensor, mesh):
+    """An input as a DTensor: as it is, or, whole on every rank, split by
+    `input_sharding_for` (batch over the batch axes where it divides)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        return t
+    return PT.distribute(t, PT.input_sharding_for(mesh, tuple(t.shape)))
+
+
+def _embed_on_shards(embed, tokens, mesh):
+    """The embedding gather on each device's shards: the table whole over
+    the batch axes (all-gathered over `data`, its gradient a partial sum
+    there) and split by rows over `model` as it is placed, each device
+    gathering the rows it holds (zeros for the others), summed over
+    `model` by the `cst` that follows."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = mesh.mesh_dim_names
+    vocab = ("model" in names
+             and embed.placements[names.index("model")] == Shard(0))
+    r, n = L._axis(mesh, "model")
+    epl = tuple(Shard(0) if name == "model" and vocab else Replicate()
+                for name in mesh.mesh_dim_names)
+    tpl = tuple(tokens.placements)
+    opl = L._partial_on(tpl, mesh, ("model",) if vocab and n > 1 else ())
+
+    def gather(table, ids):
+        ids = ids.long()
+        if opl == tpl:                       # the rows are all here
+            return table[ids]
+        rows = table.shape[0]
+        local = ids - r * rows
+        mine = (local >= 0) & (local < rows)
+        return torch.where(mine[..., None], table[local.clamp(0, rows - 1)],
+                           0.0).to(table.dtype)
+    return L._on_shards(gather, mesh, (embed, tokens), (epl, tpl), opl,
+                        (L._partial_on(epl, mesh, PT.batch_axes(mesh)), tpl))
+
+
+def param_paths(model: Transformer):
+    """(parameter, its leaf's path in the reference's tree, the leaf's
+    shape, whether the leaf is stacked over layers) for every parameter."""
+    cfg = model.cfg
+    for si, li, bi, block in model.layers_of():
+        count = cfg.segments[si].count
+        for path in _block_names(cfg, block.kind):
+            p = _param(block, path)
+            yield (p, "/".join(("segments", str(si), str(bi)) + path),
+                   (count, *p.shape), True)
+    top = (["final_norm"] + (["embed"] if cfg.embed_inputs else [])
+           + ([] if cfg.tie_embeddings else ["unembed"]))
+    for name in top:
+        p = getattr(model, name)
+        yield p, name, tuple(p.shape), False
+
+
+def layer_shardings(model: Transformer, mesh) -> list:
+    """The `partitioning.Sharding` of each parameter of `model`, in the
+    order of `model.parameters()`: its leaf's spec, the stacked layer dim
+    dropped."""
+    specs = {id(p): PT.spec_for_param(path, shape, mesh)[1 if stacked
+                                                           else 0:]
+             for p, path, shape, stacked in param_paths(model)}
+    return [PT.Sharding(mesh, specs[id(p)]) for p in model.parameters()]
+
+
+def shard_model(model: Transformer, mesh) -> Transformer:
+    """Place every parameter of `model` as a DTensor on `mesh` by
+    `param_placements`, in place (same names, same order); a parameter
+    that is a DTensor already is gathered first (a re-mesh). Every rank
+    must hold the same values; nothing is sent. Returns the model."""
+    from torch.distributed.tensor import DTensor
+    placed = {id(p): sh.placements
+              for p, sh in zip(model.parameters(),
+                               layer_shardings(model, mesh))}
+    for module in model.modules():
+        for name, p in list(module._parameters.items()):
+            if p is None or id(p) not in placed:
+                continue
+            data = p.data
+            if isinstance(data, DTensor):
+                data = data.full_tensor()
+            new = nn.Parameter(PT.distribute(data, placed[id(p)], mesh),
+                               requires_grad=p.requires_grad)
+            module._parameters[name] = new
+    return model
 
 
 # ---------------------------------------------------------------------------
@@ -336,6 +469,11 @@ def pad_cache_to(cache, cfg: ModelConfig, S_max: int):
         if s >= S_max:
             return leaf
         widths = (0, 0) * (leaf.dim() - 1 - axis) + (0, S_max - s)
+        if hasattr(leaf, "to_local"):   # a DTensor: its sequence is whole
+            from torch.distributed.tensor import DTensor
+            return DTensor.from_local(
+                torch.nn.functional.pad(leaf.to_local(), widths),
+                leaf.device_mesh, leaf.placements, run_check=False)
         return torch.nn.functional.pad(leaf, widths)
 
     def axis_of(kind: str) -> int | None:

@@ -55,15 +55,32 @@ def cosine_lr(cfg: AdamWConfig, step) -> torch.Tensor:
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum over tensors of their fp32 sums of squares (an fp32
-    0-d tensor on the tensors' device)."""
+    0-d tensor on the tensors' device). A DTensor adds its local shard's
+    sum, summed over the mesh dims that split it: nothing is gathered."""
+    from torch.distributed.tensor import DTensor
     total = None
     for t in tensors:
-        flat = t.detach().reshape(-1).to(torch.float32)
-        sq = torch.dot(flat, flat)
+        if isinstance(t, DTensor):
+            flat = t.to_local().detach().reshape(-1).to(torch.float32)
+            sq = _summed_over_shards(torch.dot(flat, flat), t)
+        else:
+            flat = t.detach().reshape(-1).to(torch.float32)
+            sq = torch.dot(flat, flat)
         total = sq if total is None else total + sq
     if total is None:
         raise ValueError("global_norm of no tensors")
+    if isinstance(total, DTensor):
+        total = total.full_tensor()
     return torch.sqrt(total)
+
+
+def _summed_over_shards(local: torch.Tensor, t) -> torch.Tensor:
+    """A per-shard 0-d sum of DTensor t as a 0-d DTensor: partial over the
+    mesh dims that split t, replicated over the others."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    pl = [Partial() if isinstance(p, Shard) else Replicate()
+          for p in t.placements]
+    return DTensor.from_local(local, t.device_mesh, pl, run_check=False)
 
 
 @torch.no_grad()
@@ -75,12 +92,25 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float
     reference)."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    for g in grads:
-        if g.dtype == torch.float32:
-            g.mul_(scale)
-        else:
-            g.copy_(g.float() * scale)
+    with replicating(grads):
+        for g in grads:
+            if g.dtype == torch.float32:
+                g.mul_(scale)
+            else:
+                g.copy_(g.float() * scale)
     return grads, norm
+
+
+def replicating(tensors):
+    """Where `tensors` are DTensors, a plain 0-d tensor (the clip scale)
+    multiplies them as a replicated one."""
+    import contextlib
+
+    from torch.distributed.tensor import DTensor
+    if not any(isinstance(t, DTensor) for t in tensors):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
 
 
 def adamw_init(params: Sequence[torch.Tensor]) -> dict:
@@ -89,12 +119,19 @@ def adamw_init(params: Sequence[torch.Tensor]) -> dict:
     params = list(params)
     return {
         "master": [p.detach().to(torch.float32, copy=True) for p in params],
-        "m": [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-              for p in params],
-        "v": [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-              for p in params],
-        "step": torch.zeros((), dtype=torch.int32),
+        "m": [torch.zeros_like(p, dtype=torch.float32) for p in params],
+        "v": [torch.zeros_like(p, dtype=torch.float32) for p in params],
+        "step": _host(lambda: torch.zeros((), dtype=torch.int32)),
     }
+
+
+def _host(fn):
+    """fn() outside any dispatch mode: the step and its schedule are host
+    arithmetic, also while a dry-run traces the step under fake tensors
+    (`launch.dryrun`)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        return fn()
 
 
 @torch.no_grad()
@@ -103,17 +140,21 @@ def adamw_update(grads: Sequence[torch.Tensor], opt_state: dict,
     """One AdamW step, in place: clips `grads` (see `clip_by_global_norm`),
     updates `opt_state` ("master", "m", "v" and "step") and writes
     `master.to(bf16)` into `params`. Returns the stats {"lr", "grad_norm"}
-    (fp32 0-d tensors)."""
-    step = opt_state["step"] + 1
-    lr = cosine_lr(cfg, step)
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
-
+    (fp32 0-d tensors). DTensor state (a state on a mesh) is updated
+    shard by shard, in place: grads, master copies, moments and parameters
+    share their placements."""
+    from torch.distributed.tensor import DTensor
     b1, b2 = cfg.b1, cfg.b2
-    sf = step.to(torch.float32)
-    # fp32 values, exact as Python floats
-    c1 = float(1.0 - b1 ** sf)
-    c2 = float(1.0 - b2 ** sf)
-    lr_f = float(lr)
+
+    def schedule():
+        step = opt_state["step"] + 1
+        sf = step.to(torch.float32)
+        # fp32 values, exact as Python floats
+        lr = cosine_lr(cfg, step)
+        return (step, lr, float(lr), float(1.0 - b1 ** sf),
+                float(1.0 - b2 ** sf))
+    step, lr, lr_f, c1, c2 = _host(schedule)
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
 
     masters, ms, vs = opt_state["master"], opt_state["m"], opt_state["v"]
     params = list(params)
@@ -128,6 +169,11 @@ def adamw_update(grads: Sequence[torch.Tensor], opt_state: dict,
         w.sub_(upd.mul_(lr_f))
         if p.dtype == torch.bfloat16:
             p.copy_(w)
+        elif isinstance(p, DTensor):
+            # `.data` would retype the wrapper alone, not its local shard:
+            # the parameter object takes a bf16 DTensor's contents whole
+            torch.utils.swap_tensors(p, torch.nn.Parameter(
+                w.to(torch.bfloat16), requires_grad=p.requires_grad))
         else:
             p.data = w.to(torch.bfloat16)
     opt_state["step"] = step

@@ -24,10 +24,17 @@ The state is updated in place (the model's bf16 parameters, the fp32
 optimizer state, the host-side int32 steps); `train_state_to_tree` and
 `train_state_from_jax` carry it to and from the reference's layout, the
 tree a checkpoint holds.
+
+On a device mesh (`mesh=`, a state placed by `launch.train.shard_state`)
+the parameters and the optimizer state are DTensors, the batch is split
+over the batch axes, and the loss is the vocab-parallel NLL of logits
+split over `model` (`_nll_on_shards`); a mesh of one device computes what
+the unsharded step computes, bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -35,7 +42,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (Transformer, forward, init_params,
                                       param_leaves, params_from_jax,
-                                      tree_of)
+                                      replicating, shard_input, tree_of)
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
 
@@ -43,6 +50,7 @@ from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 class TrainConfig:
     accum: int = 1                  # gradient-accumulation microbatches
     remat: str = "none"             # "none" | "block"
+    seq_parallel: bool = False      # Megatron SP on the residual stream
 
 
 @dataclasses.dataclass
@@ -97,26 +105,96 @@ class _TokenNLL(torch.autograd.Function):
         return grad.to(logits.dtype), None
 
 
+class _VocabParallelNLL(torch.autograd.Function):
+    """`_TokenNLL` of logits whose vocab is split over a process group:
+    each rank holds columns lo .. lo + V_l - 1 of every row. The row max,
+    the exp-sum and the picked logit are all-reduced over the group, so
+    every rank gets the same token-mean NLL; the gradient, (softmax -
+    onehot) / N, needs no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo, group):
+        from repro_torch.models.layers import _reduce
+        lf = logits.to(torch.float32)
+        mx = _reduce(lf.amax(dim=-1), "max", group)
+        lse = _reduce((lf - mx[:, None]).exp_().sum(dim=-1), "sum",
+                      group).log_().add_(mx)
+        local = labels - lo
+        mine = (local >= 0) & (local < lf.shape[-1])
+        local = local.clamp(0, lf.shape[-1] - 1)
+        picked = torch.where(mine, lf.gather(-1, local[:, None])[:, 0], 0.0)
+        del lf
+        picked = _reduce(picked, "sum", group)
+        ctx.save_for_backward(logits, local, mine, lse)
+        return (lse - picked).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, local, mine, lse = ctx.saved_tensors
+        grad = logits.to(torch.float32, copy=True).sub_(lse[:, None]).exp_()
+        rows = torch.arange(grad.shape[0], device=grad.device)
+        grad[rows, local] -= mine.to(grad.dtype)
+        grad.mul_(g / grad.shape[0])
+        return grad.to(logits.dtype), None, None, None
+
+
+def _nll_on_shards(logits, labels, mesh):
+    """The token-mean NLL of DTensor logits (B, S, V), placed as the
+    reference's `cst` leaves them (batch over the batch axes, the vocab
+    over `model`), on each device's shards: `_TokenNLL` where the vocab is
+    whole, else `_VocabParallelNLL` over `model`; each device's mean is
+    weighed by its share of the rows and summed over the batch axes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.models import layers as L
+    lpl = tuple(logits.placements)
+    names = mesh.mesh_dim_names
+    split = [mesh.shape[i] for i, p in enumerate(lpl) if p == Shard(0)]
+    share = 1.0 / math.prod(split)
+    vocab = lpl[names.index("model")] == Shard(2) if "model" in names \
+        else False
+    r, n = L._axis(mesh, "model") if vocab else (0, 1)
+    group = mesh.get_group("model") if n > 1 else None
+    bpl = tuple(p if p == Shard(0) else Replicate() for p in lpl)
+    opl = tuple(Partial() if p == Shard(0) else Replicate() for p in lpl)
+
+    def nll(lg, lb):
+        lg, lb = lg.reshape(-1, lg.shape[-1]), lb.reshape(-1).long()
+        out = (_TokenNLL.apply(lg, lb) if n == 1 else
+               _VocabParallelNLL.apply(lg, lb, r * lg.shape[-1], group))
+        return out if share == 1.0 else out * share
+    return L._on_shards(nll, mesh, (logits, labels), (lpl, bpl), opl)
+
+
 def loss_fn(model: Transformer, tokens: torch.Tensor, labels: torch.Tensor,
             tcfg: TrainConfig = TrainConfig(),
-            vision: torch.Tensor | None = None):
+            vision: torch.Tensor | None = None, mesh=None):
     """-> (loss, (nll, aux)): nll is the token-mean NLL of the fp32
     log-softmax of the train-mode logits, aux the forward's MoE
     load-balance loss (0 without an MoE block), and the loss
     nll + model.cfg.moe.router_aux_weight x aux (the reference's
     `aux_weight`, 0.01 there and in every MoE config), or the nll alone
-    without an MoE config."""
+    without an MoE config. With a mesh the three are replicated DTensors
+    (the batch's reductions done)."""
     logits, _, aux = forward(model, tokens, mode="train", remat=tcfg.remat,
-                             vision=vision)
-    nll = _TokenNLL.apply(logits.reshape(-1, logits.shape[-1]),
-                          labels.reshape(-1).long())
+                             vision=vision, mesh=mesh,
+                             seq_parallel=tcfg.seq_parallel)
+    if mesh is None:
+        nll = _TokenNLL.apply(logits.reshape(-1, logits.shape[-1]),
+                              labels.reshape(-1).long())
+    else:
+        from torch.distributed.tensor import Replicate
+        nll = _nll_on_shards(logits, shard_input(labels, mesh), mesh)
+        rep = [Replicate()] * mesh.ndim
+        nll = nll.redistribute(mesh, rep)
+        if hasattr(aux, "redistribute"):         # no MoE: a plain zero
+            aux = aux.redistribute(mesh, rep)
     moe = model.cfg.moe
     loss = nll if moe is None else nll + moe.router_aux_weight * aux
     return loss, (nll, aux)
 
 
 def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
-                    tcfg: TrainConfig = TrainConfig()):
+                    tcfg: TrainConfig = TrainConfig(), mesh=None):
     """Returns train_step(state, tokens, labels, vision=None) -> (state,
     metrics).
 
@@ -126,25 +204,53 @@ def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
     divisible by accum, and each microbatch takes its rows of tokens,
     labels and vision.
     The state is updated in place and returned; metrics are fp32 0-d
-    tensors: loss, nll, aux, lr and grad_norm (before clipping)."""
+    tensors: loss, nll, aux, lr and grad_norm (before clipping).
+
+    With a mesh the state is placed on it (`launch.train.shard_state`);
+    inputs that are not DTensors are split by
+    `partitioning.input_sharding_for` (each rank passing the whole batch),
+    each device's microbatch is its own rows' share, grads take their
+    parameters' placements, and the metrics are plain tensors."""
 
     def grads_of(state: TrainState, tokens, labels, vision):
         for p in state.params:
             p.grad = None
         loss, (nll, aux) = loss_fn(state.model, tokens, labels, tcfg,
-                                   vision)
-        loss.backward()
+                                   vision, mesh)
+        if mesh is not None:
+            loss, nll, aux = (_whole(t) for t in (loss, nll, aux))
+        with replicating(mesh):
+            loss.backward()
         grads = [p.grad for p in state.params]
         for p in state.params:
             p.grad = None
+        if mesh is not None:
+            grads = [g if g.placements == p.placements else
+                     g.redistribute(p.device_mesh, p.placements)
+                     for g, p in zip(grads, state.params)]
         return loss.detach(), nll.detach(), aux.detach(), grads
+
+    def rows(t, i: int, mb: int):
+        """Microbatch i: rows i x mb ... of the batch, or with a mesh the
+        same rows of each device's shard."""
+        if t is None or mesh is None:
+            return None if t is None else t[i * mb:(i + 1) * mb]
+        from torch.distributed.tensor import DTensor
+        local = t.to_local()
+        n = local.shape[0] * mb // t.shape[0]
+        return DTensor.from_local(local[i * n:(i + 1) * n], mesh,
+                                  t.placements, run_check=False)
 
     def train_step(state: TrainState, tokens, labels, vision=None):
         dev = state.model.final_norm.device
-        tokens = torch.as_tensor(tokens, device=dev)
-        labels = torch.as_tensor(labels, device=dev)
+        tokens = _as_input(tokens, dev)
+        labels = _as_input(labels, dev)
         if vision is not None:
-            vision = torch.as_tensor(vision, device=dev)
+            vision = _as_input(vision, dev)
+        if mesh is not None:
+            tokens, labels = (shard_input(t, mesh) for t in (tokens, labels))
+            if vision is not None:
+                vision = shard_input(vision, mesh)
         if tcfg.accum == 1:
             loss, nll, aux, grads = grads_of(state, tokens, labels, vision)
         else:
@@ -153,15 +259,14 @@ def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
                 raise ValueError(f"batch {B} is not divisible by accum "
                                  f"{tcfg.accum}")
             mb = B // tcfg.accum
-            grads = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
+            grads = [torch.zeros_like(p, dtype=torch.float32)
                      for p in state.params]
             loss = nll = aux = torch.zeros((), dtype=torch.float32,
                                            device=dev)
             for i in range(tcfg.accum):
-                rows = slice(i * mb, (i + 1) * mb)
                 l_i, n_i, a_i, g_i = grads_of(
-                    state, tokens[rows], labels[rows],
-                    None if vision is None else vision[rows])
+                    state, rows(tokens, i, mb), rows(labels, i, mb),
+                    rows(vision, i, mb))
                 with torch.no_grad():
                     for acc, g in zip(grads, g_i):
                         acc += g.to(torch.float32)
@@ -180,12 +285,26 @@ def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
     return train_step
 
 
+def _as_input(t, device):
+    """An input as a tensor on `device` (a DTensor as it is)."""
+    from torch.distributed.tensor import DTensor
+    return t if isinstance(t, DTensor) else torch.as_tensor(t, device=device)
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered to the whole tensor; a tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def train_state_to_tree(state: TrainState) -> tuple:
     """The reference's `TrainState` as a tree: (params, {"m", "master",
     "step", "v"}, step), which the checkpoint serializer flattens to the
     reference's paths (`0/...`, `1/m/...`, `1/master/...`, `1/step`,
     `1/v/...`, `2`). A snapshot: no leaf aliases the live state, which the
-    next step updates in place. Leaves stay on their devices."""
+    next step updates in place. Leaves stay on their devices; DTensor
+    leaves (a state on a mesh) are gathered whole, so the tree has the
+    bytes of the unsharded state's."""
     model = state.model
     index = {id(p): i for i, p in enumerate(state.params)}
 
@@ -193,8 +312,9 @@ def train_state_to_tree(state: TrainState) -> tuple:
         tree = tree_of(model, value)
         return {k: (v if k == "segments" else v.clone())
                 for k, v in tree.items()}
-    params = snapshot(lambda p: p.data)
-    opt = {name: snapshot(lambda p, lst=state.opt[name]: lst[index[id(p)]])
+    params = snapshot(lambda p: _whole(p.data))
+    opt = {name: snapshot(lambda p, lst=state.opt[name]:
+                          _whole(lst[index[id(p)]]))
            for name in ("m", "master", "v")}
     opt["step"] = state.opt["step"].clone()
     return params, opt, state.step.clone()
@@ -237,24 +357,27 @@ def _int32(leaf) -> torch.Tensor:
     return torch.tensor(int(leaf), dtype=torch.int32)
 
 
-def make_serve_prefill(cfg: ModelConfig):
+def make_serve_prefill(cfg: ModelConfig, mesh=None):
     """serve_prefill(model, tokens, vision=None) -> (last-position logits,
     cache). The cache's sequence capacity equals the prompt length; the
-    server pads it to S_max before decode."""
+    server pads it to S_max before decode. With a mesh the model is placed
+    on it (`models.model.shard_model`) and the outputs are DTensors."""
     def serve_prefill(model, tokens, vision=None):
         logits, cache, _ = forward(model, tokens, mode="prefill",
-                                   vision=vision)
+                                   vision=vision, mesh=mesh)
         return logits[:, -1], cache
     return serve_prefill
 
 
-def make_serve_decode(cfg: ModelConfig):
+def make_serve_decode(cfg: ModelConfig, mesh=None):
     """serve_decode(model, token, cache, pos, vision=None) -> (logits,
     cache): one new token per sequence against a cache filled to `pos`
     (a `cross_attn` block reads its vision keys and values from the
-    cache, so `vision` is not needed)."""
+    cache, so `vision` is not needed). With a mesh the cache is placed by
+    `partitioning.cache_shardings` (the sequence over `model`)."""
     def serve_decode(model, token, cache, pos: int, vision=None):
         logits, new_cache, _ = forward(model, token, mode="decode",
-                                       cache=cache, pos=pos, vision=vision)
+                                       cache=cache, pos=pos, vision=vision,
+                                       mesh=mesh)
         return logits[:, 0], new_cache
     return serve_decode

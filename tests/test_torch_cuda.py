@@ -997,3 +997,68 @@ def test_hubert_smoke_on_the_card_matches_the_cpu(card):
         0, cfg.vocab_size, (2, 64)))
     state, metrics = step(state, frames, labels)
     assert bool(torch.isfinite(metrics["loss"])) and int(state.step) == 1
+
+
+def test_flash_operator_launches_the_kernel(card):
+    """`torch.ops.repro_torch.flash_attention_fwd` on CUDA tensors is the
+    kernel's launch: one launch counted, the plain version's result."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    q, k, v = (torch.randn(sh, generator=gen, device="cuda").bfloat16()
+               for sh in ((2, 8, 256, 128), (2, 2, 256, 128),
+                          (2, 2, 256, 128)))
+    fak.reset_counts()
+    out, lse = torch.ops.repro_torch.flash_attention_fwd(q, k, v, True, 0)
+    assert fak.launches == 1 and fak.plain_calls == 0
+    want, want_lse = fak.flash_attention_fwd_plain(q, k, v, causal=True)
+    assert (out.float() - want.float()).abs().max().item() < 2e-2
+    assert (lse - want_lse).abs().max().item() < 2e-2
+
+
+def test_sharded_step_on_the_card_is_the_unsharded_step(card):
+    """Two SMOKE steps (accum 2, remat, seq_parallel) on the card's host
+    mesh, (data 1, model 1): losses and every leaf bit for bit those of
+    the same steps without a mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import shard_state
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step, train_state_to_tree)
+
+    cfg = get_config("llama3.2-3b", smoke=True)
+    mesh = make_host_mesh()
+
+    def steps(m):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        state = init_train_state(cfg, gen, "cuda")
+        if m is not None:
+            shard_state(state, m)
+        step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1),
+                               TrainConfig(accum=2, remat="block",
+                                           seq_parallel=True), mesh=m)
+        data = torch.Generator()
+        data.manual_seed(1)
+        losses = []
+        for _ in range(2):
+            t = torch.randint(0, cfg.vocab_size, (4, 32), generator=data)
+            state, met = step(state, t, torch.roll(t, -1, 1))
+            losses.append(float(met["loss"]))
+        return losses, train_state_to_tree(state)
+
+    def flat(tree, out):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                flat(v, out)
+        elif isinstance(tree, (tuple, list)):
+            for v in tree:
+                flat(v, out)
+        else:
+            out.append(tree)
+        return out
+    want_losses, want = steps(None)
+    got_losses, got = steps(mesh)
+    assert got_losses == want_losses
+    assert all(torch.equal(a, b) for a, b in zip(flat(want, []),
+                                                 flat(got, [])))
