@@ -32,6 +32,22 @@ Drives the port's main path on one CUDA card and checks every byte:
      and against fp32 autograd through naive attention (2e-2 of max
      |grad|), with the backward's time beside the forward kernel's and
      SDPA's forward + backward;
+  3b. the launch planner (`kernels.autotune`, ROADMAP A5): at the encode
+     shape (S=8, 30 x 180, 1 MiB) and the delta terms (21 x 1, 1 MiB)
+     `measure_matmul_tiles` times every candidate grid on the card (SMs x
+     c for c up to the CTAs an SM holds at once: one at 168 registers a
+     thread, so the default alone) and the winners go to a timings file
+     under `build/`; with
+     `REPRO_TORCH_AUTOTUNE_CACHE` naming it (and a hand-written XOR entry,
+     half the default grid, for S=23, s=20, 1 MiB) both shapes launch
+     again through `kernels.ops`: the plan must be "measured", the host
+     code's own plan for that grid must equal it, every byte must equal
+     the plain version's; each candidate's, the default's and the
+     measured plan's device ms and bound shares are printed. The variable
+     is unset before phase 4, so every later phase launches the default
+     plan. Then the hazards CLI (`python -m repro_torch.analysis.hazards`)
+     on the card: every workload OK with the CPU's ops, waves and
+     violations;
   4. stripe path: UniLRC 180-of-210 (alpha=2, z=10) on 10 clusters x 24
      nodes, 1 MiB blocks, `TorchBackend("cuda")`: a 4 GiB streamed write
      in windows of 8 stripes, a full read, one node lost (degraded read,
@@ -160,11 +176,12 @@ Drives the port's main path on one CUDA card and checks every byte:
      step equal); the training CLI's drill and the serving CLI on the
      mesh (`--mesh`: without it one device runs them unsharded, as
      phases 8, 12 and 17 do; the served tokens equal the unsharded
-     server's); and three
+     server's); and four
      dry-run cells on 256 / 512 fake devices in child processes
      (llama3.2-3b x train_4k x single, kimi-k2 x decode_32k x multi,
-     rwkv6-7b x long_500k x single), their per-device bytes beside the
-     card's 80 GB. Phase 3 also times each flash case through the
+     rwkv6-7b x long_500k x single, and hubert-xlarge x prefill_32k x
+     single, whose blockwise attention traces as one operator a layer:
+     48, ROADMAP C4), their per-device bytes beside the card's 80 GB. Phase 3 also times each flash case through the
      operator `torch.ops.repro_torch.flash_attention_fwd` (`op_ms`,
      `dispatch_us`: what the dispatcher adds, which the wrapper skips);
   5. a JSON line of per-kernel numbers (five rows: gf, xor, flash d=128,
@@ -174,7 +191,9 @@ Drives the port's main path on one CUDA card and checks every byte:
      example's included; the flash d=128 row carries phase 16's two
      cross-attention shapes under `cross_shapes`, each with its
      launches as the wrapper counted them by mode, its error and the
-     unmasked tail's, times and bound), the card line, and the result line
+     unmasked tail's, times and bound; the gf and xor rows carry phase
+     3b's plan: `plan_source`, `grid_steps`, `tuned_device_ms`), the card
+     line, and the result line
      `{"ok": true, "device": {...}}` last.
 
 Any failed check exits non-zero before the result line. Without a CUDA
@@ -2330,7 +2349,13 @@ def examples_phase() -> dict:
 #: 512 ranks, and a recurrent state at 524288 tokens of context
 DRYRUN_CELLS = (("llama3.2-3b", "train_4k", "single"),
                 ("kimi-k2-1t-a32b", "decode_32k", "multi"),
-                ("rwkv6-7b", "long_500k", "single"))
+                ("rwkv6-7b", "long_500k", "single"),
+                ("hubert-xlarge", "prefill_32k", "single"))
+#: the port's kernel operators a cell must trace (`op_audit["custom"]`):
+#: hubert's head dim 80 takes the blockwise operator once a layer (C4)
+DRYRUN_CUSTOM_OPS = {("hubert-xlarge", "prefill_32k", "single"): 48}
+#: wall seconds a cell may take
+DRYRUN_CELL_S = {("hubert-xlarge", "prefill_32k", "single"): 180}
 CARD_BYTES = 80e9
 
 
@@ -2358,10 +2383,19 @@ def dryrun_finish(procs: list, timeout: float = 420) -> None:
             proc.communicate()
             fail(f"dry-run {arch} x {shape} x {mesh}: no result in "
                  f"{timeout} s")
+        wall = time.perf_counter() - t0
         check(proc.returncode == 0, f"dry-run {arch} x {shape} x {mesh}: "
               f"{err[-2000:]}")
         r = json.loads(out[out.index("{"):])
         check(r["status"] == "ok", f"dry-run {arch} x {shape}: {r}")
+        cell = (arch, shape, mesh)
+        custom = r["op_audit"]["custom"]
+        if cell in DRYRUN_CUSTOM_OPS:
+            check(custom == DRYRUN_CUSTOM_OPS[cell],
+                  f"dry-run {cell}: {custom} kernel operators, want "
+                  f"{DRYRUN_CUSTOM_OPS[cell]}")
+        check(wall <= DRYRUN_CELL_S.get(cell, timeout),
+              f"dry-run {cell}: {wall:.1f} s")
         mem, coll = r["memory"], r["collectives"]
         peak = mem.get("peak_bytes_per_device", -1)
         phase("mesh dryrun", cell=f"{arch} x {shape} x {mesh}",
@@ -2374,9 +2408,8 @@ def dryrun_finish(procs: list, timeout: float = 420) -> None:
                                         coll["bytes_by_op"].items()}),
               collective_count=json.dumps(coll["count_by_op"]),
               cross_pod_GB=f"{coll['cross_pod_bytes'] / 1e9:.4f}",
-              kernel_ops=r["op_audit"]["custom"], ops=r["op_count"],
-              trace_seconds=r["trace_seconds"],
-              wall_seconds=f"{time.perf_counter() - t0:.1f}")
+              kernel_ops=custom, ops=r["op_count"],
+              trace_seconds=r["trace_seconds"], wall_seconds=f"{wall:.1f}")
 
 
 def mesh_phase(seed: int) -> dict:
@@ -2541,6 +2574,176 @@ def leaves(node):
         yield node
 
 
+AUTOTUNE_FILE = ROOT / "build" / "autotune_timings.json"
+PLANNER_REPS = 20
+
+
+def planner_phase(code, rand, sms: int, rng) -> dict:
+    """Phase 3b (ROADMAP A5): `measure_matmul_tiles` on the card at the
+    encode shape and the delta terms, the winners and a hand-written XOR
+    entry (half the default grid at S=23, s=20, 1 MiB) saved to
+    `AUTOTUNE_FILE`, then both GF shapes and the XOR shape launched through
+    `kernels.ops` with `REPRO_TORCH_AUTOTUNE_CACHE` naming the file: plan
+    "measured", the host code's plan for that grid equal to it, bytes equal
+    to the plain version's. The variable is unset again before returning.
+    Returns, per shape, the plan and the device ms under both plans."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.gf import gf_bit_columns
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels import gf_bitmatmul as gfk
+    from repro_torch.kernels import xor_reduce as xrk
+
+    check(autotune.CACHE_ENV not in os.environ,
+          f"{autotune.CACHE_ENV} is set before the planner phase")
+    autotune.invalidate_plan_cache()
+    t0 = time.perf_counter()
+    B = MIB
+    shapes = {"encode": (np.asarray(code.A, dtype=np.uint8), 8),
+              "delta_terms": (rng.integers(1, 256, (21, 1), dtype=np.uint8),
+                              1)}
+    data = {name: rand(S, M.shape[1], B) for name, (M, S) in shapes.items()}
+    entries = {}
+    for M, S in shapes.values():
+        m, k = M.shape
+        entries.update(autotune.measure_matmul_tiles(k, m, B, S=S,
+                                                     repeat=PLANNER_REPS))
+    AUTOTUNE_FILE.unlink(missing_ok=True)
+    xs, xS = 20, 23
+    xor_default = autotune.xor_plan(xs, B).grid_steps
+    entries[autotune.xor_key(xs, B)] = {"grid_steps": xor_default // 2}
+    autotune.save_timings(entries, AUTOTUNE_FILE)
+    blocks = rand(xS, xs, B)
+
+    def gf_ms(M, x):
+        return time_ms(lambda: ops.apply_matrix_many(M, x), PLANNER_REPS,
+                       spin=True)
+
+    def xor_ms():
+        return time_ms(lambda: ops.xor_fold_many(blocks), PLANNER_REPS,
+                       spin=True)
+    default = {name: gf_ms(M, data[name]) for name, (M, _) in shapes.items()}
+    default["xor"] = xor_ms()
+
+    out = {}
+    os.environ[autotune.CACHE_ENV] = str(AUTOTUNE_FILE)
+    autotune.invalidate_plan_cache()
+    try:
+        for name, (M, S) in shapes.items():
+            m, k = M.shape
+            x = data[name]
+            plan = autotune.plan_matmul_tiles(
+                k, m, B, S=S, sms=sms,
+                resident=gfk.resident_ctas(m, k, x.device))
+            entry = entries[autotune.matmul_key(k, m, B)]
+            check(plan.source == "measured"
+                  and plan.grid_steps == entry["grid_steps"],
+                  f"{name}: plan {plan}, entry {entry}")
+            host = gfk.host_plan(S, m, k, B, grid=plan.grid_steps)
+            check((host["threads"], host["grid"], host["smem"],
+                   host["k_passes"], host["N"]) == (
+                       plan.threads, plan.grid_steps, plan.smem_bytes,
+                       plan.passes, plan.n_width),
+                  f"{name}: host plan {host} != {plan}")
+            before = gfk.launches
+            got = ops.apply_matrix_many(M, x)
+            want = gfk.gf_bitmatmul_plain(
+                torch.from_numpy(gf_bit_columns(M)).to(x.device), x)
+            torch.cuda.synchronize()
+            check(gfk.launches == before + 1 and torch.equal(got, want),
+                  f"{name}: the measured plan's launch != plain")
+            tuned = gf_ms(M, x)
+            b, by = bound_ms(gfk.bound_bytes(S, m, k, B),
+                             gfk.bound_ops(S, m, k, B))
+            cand = {g: round(t * 1e3, 4)
+                    for g, t in entry["candidates"].items()}
+            phase(f"planner gf {name}", S=S, m=m, k=k, B=B,
+                  candidates_ms=json.dumps(cand),
+                  resident_per_sm=host["resident"],
+                  plan_source=plan.source, grid_steps=plan.grid_steps,
+                  default_grid=autotune.matmul_plan(k, m, B, S=S,
+                                                    sms=sms).grid_steps,
+                  default_device_ms=f"{default[name]:.4f}",
+                  tuned_device_ms=f"{tuned:.4f}",
+                  tuned_vs_default=f"{tuned / default[name]:.3f}",
+                  bound_ms=f"{b:.4f}", bound_by=by,
+                  bound_share_default=f"{b / default[name]:.4f}",
+                  bound_share_tuned=f"{b / tuned:.4f}", identical=True)
+            out[name] = dict(plan_source=plan.source,
+                             grid_steps=plan.grid_steps,
+                             default_device_ms=default[name],
+                             tuned_device_ms=tuned, candidates_ms=cand)
+        plan = autotune.plan_xor_tiles(xs, B, S=xS)
+        check(plan.source == "measured"
+              and plan.grid_steps == xor_default // 2, f"xor plan {plan}")
+        before = xrk.launches
+        got = ops.xor_fold_many(blocks)
+        want = xrk.xor_reduce_plain(blocks)
+        torch.cuda.synchronize()
+        check(xrk.launches == before + 1 and torch.equal(got, want),
+              "xor: the measured plan's launch != plain")
+        tuned = xor_ms()
+        b, by = bound_ms(xrk.bound_bytes(xS, xs, B))
+        phase("planner xor", S=xS, s=xs, B=B, plan_source=plan.source,
+              grid_steps=plan.grid_steps, default_grid=xor_default,
+              default_device_ms=f"{default['xor']:.4f}",
+              tuned_device_ms=f"{tuned:.4f}",
+              tuned_vs_default=f"{tuned / default['xor']:.3f}",
+              bound_ms=f"{b:.4f}", bound_by=by,
+              bound_share_default=f"{b / default['xor']:.4f}",
+              bound_share_tuned=f"{b / tuned:.4f}", identical=True)
+        out["xor"] = dict(plan_source=plan.source,
+                          grid_steps=plan.grid_steps,
+                          default_device_ms=default["xor"],
+                          tuned_device_ms=tuned)
+    finally:
+        del os.environ[autotune.CACHE_ENV]
+        autotune.invalidate_plan_cache()
+    check(autotune.plan_matmul_tiles(1, 21, B, sms=sms).source == "model",
+          "the default plan is not back after the planner phase")
+    phase("planner phase", seconds=f"{time.perf_counter() - t0:.2f}",
+          timings=str(AUTOTUNE_FILE.relative_to(ROOT)))
+    return out
+
+
+def hazards_phase() -> None:
+    """The hazards CLI on the card (its workloads' writes launch the
+    coding kernels), against the same workloads written on the CPU: every
+    workload OK, ops, waves and violations equal."""
+    from repro_torch.analysis import hazards
+    from repro_torch.kernels import gf_bitmatmul as gfk
+
+    t0 = time.perf_counter()
+    report = ROOT / "build" / "hazards.json"
+    report.unlink(missing_ok=True)
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.hazards", "--out",
+         str(report)], capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, cwd=ROOT)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"hazards CLI: {proc.stdout}{proc.stderr}")
+    lines = [ln for ln in proc.stdout.splitlines() if " ops, " in ln]
+    card = json.loads(report.read_text())["workloads"]
+    cpu = {k: r.to_dict() for k, r in hazards._workload_reports("cpu").items()}
+    before = gfk.launches
+    again = {k: r.to_dict()
+             for k, r in hazards._workload_reports("cuda").items()}
+    launched = gfk.launches - before
+
+    def counts(reports):
+        return {k: (r["ops"], r["waves"], len(r["violations"]), r["ok"])
+                for k, r in reports.items()}
+    check(len(lines) == 3 and all(ln.startswith("OK ") for ln in lines),
+          f"hazards CLI lines {lines}")
+    check(counts(card) == counts(cpu) == counts(again),
+          f"hazards: card {counts(card)}, cpu {counts(cpu)}")
+    check(launched > 0, "the hazards workloads launched no gf kernel")
+    phase("hazards", workloads=json.dumps(counts(card)),
+          cli_seconds=f"{cli_s:.2f}", gf_launches_in_process=launched,
+          seconds=f"{time.perf_counter() - t0:.2f}")
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {__file__}: run from the repo root")
@@ -2626,7 +2829,7 @@ def main() -> None:
             data = rand(S * k * B + offset)[offset:].view(S, k, B)
         else:
             data = rand(S, k, B)
-        got = gfk.gf_bitmatmul(cols, data)
+        got = gfk.gf_bitmatmul(cols, data)  # repro-lint: allow=RA001
         want = gfk.gf_bitmatmul_plain(cols, data)
         torch.cuda.synchronize()
         err = int((got.int() - want.int()).abs().max())
@@ -2639,7 +2842,9 @@ def main() -> None:
                plan["N"]) == (tile.threads, tile.grid_steps, tile.smem_bytes,
                               tile.passes, tile.n_width),
               f"matmul_plan {tile} != the kernel's plan {plan}")
+        # repro-lint: allow=RA001
         ms = time_ms(lambda: gfk.gf_bitmatmul(cols, data), reps)
+        # repro-lint: allow=RA001
         dms = time_ms(lambda: gfk.gf_bitmatmul(cols, data), reps, spin=True)
         pms = time_ms(lambda: gfk.gf_bitmatmul_plain(cols, data), plain_reps)
         b, by = bound_ms(gfk.bound_bytes(S, m, k, B),
@@ -2661,12 +2866,14 @@ def main() -> None:
             blocks = rand(S * s * B + offset)[offset:].view(S, s, B)
         else:
             blocks = rand(S, s, B)
-        got = xrk.xor_reduce(blocks)
+        got = xrk.xor_reduce(blocks)  # repro-lint: allow=RA001
         want = xrk.xor_reduce_plain(blocks)
         torch.cuda.synchronize()
         err = int((got.int() - want.int()).abs().max())
         check(err == 0, f"xor_reduce != plain at S={S} s={s} B={B}")
+        # repro-lint: allow=RA001
         ms = time_ms(lambda: xrk.xor_reduce(blocks), reps)
+        # repro-lint: allow=RA001
         dms = time_ms(lambda: xrk.xor_reduce(blocks), reps, spin=True)
         pms = time_ms(lambda: xrk.xor_reduce_plain(blocks), plain_reps)
         b, by = bound_ms(xrk.bound_bytes(S, s, B))
@@ -2758,6 +2965,7 @@ def main() -> None:
         # the same launch through the operator `torch.ops.repro_torch.
         # flash_attention_fwd` (the dry-run's route): what the
         # dispatcher costs a call, which the wrapper does not pay
+        # repro-lint: allow=RA001
         oms = time_ms(lambda: torch.ops.repro_torch.flash_attention_fwd(
             q, k, v, bool(causal), int(window)), reps)
         pms = time_ms(plain, plain_reps)
@@ -2894,6 +3102,12 @@ def main() -> None:
     # the flash layer's gradient: kernel forward, blockwise backward
     flash_grad = flash_grad_check(gen, dev)
     faulthandler.cancel_dump_traceback_later()
+
+    # 3b. the launch planner (A5), then the hazards CLI on the card ----------
+    faulthandler.dump_traceback_later(300, exit=True)
+    planner = planner_phase(code, rand, sms, rng)
+    faulthandler.cancel_dump_traceback_later()
+    hazards_phase()
 
     # 4. main path ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -3083,7 +3297,14 @@ def main() -> None:
                                "serve_vision": vision_path["gf_bitmatmul"],
                                "encode_hubert": hubert_path["gf_bitmatmul"],
                                "train_cli_mesh": mesh_path["gf_bitmatmul"]},
-             library_ms=None, **gf_main),
+             library_ms=None, **gf_main,
+             # the row's shape (encode) under the measured plan of phase
+             # 3b; `planned_shapes` has the delta terms too
+             plan_source=planner["encode"]["plan_source"],
+             grid_steps=planner["encode"]["grid_steps"],
+             tuned_device_ms=planner["encode"]["tuned_device_ms"],
+             planned_shapes={k: planner[k] for k in ("encode",
+                                                     "delta_terms")}),
         dict(name="xor_reduce", kernel="xor_fold_kernel", route="cuda",
              source="src/repro_torch/csrc/coding_kernels.cu",
              replaces="src/repro/kernels/xor_reduce.py:54",
@@ -3098,7 +3319,11 @@ def main() -> None:
                                "serve_vision": vision_path["xor_reduce"],
                                "encode_hubert": hubert_path["xor_reduce"],
                                "train_cli_mesh": mesh_path["xor_reduce"]},
-             library_ms=None, **xor_main),
+             library_ms=None, **xor_main,
+             plan_source=planner["xor"]["plan_source"],
+             grid_steps=planner["xor"]["grid_steps"],
+             tuned_device_ms=planner["xor"]["tuned_device_ms"],
+             planned=planner["xor"]),
         dict(name="flash_attention", kernel="flash_fwd_sm90_kernel",
              route="cuda", source="src/repro_torch/csrc/flash_fwd_sm90.cu",
              replaces="src/repro/kernels/flash_attention.py:116",

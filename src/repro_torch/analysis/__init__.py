@@ -8,10 +8,14 @@
     transition core (`sim.repair.SchedCore`) over every interleaving of
     bounded scenarios and replay violating traces through the port's
     `Simulator`.
-
-The reference's `lint` needs no copy: it already lints this package.
+  * `lint` checks the port's own source against its repo invariants
+    (raw kernel calls, float GF arrays, counter writes, hard-coded launch
+    shapes, ...); stdlib only, loaded on first attribute access, so that
+    `python -m repro_torch.analysis.lint` finds it unloaded.
 """
 from __future__ import annotations
+
+from typing import Any
 
 from . import certificate, model, schedcheck, verify
 from .hazards import (FlushSchedule, HazardReport, HazardViolation, OpAccess,
@@ -21,4 +25,11 @@ from .hazards import (FlushSchedule, HazardReport, HazardViolation, OpAccess,
 __all__ = ["FlushSchedule", "HazardReport", "HazardViolation", "OpAccess",
            "Step", "Wave", "analyze_flush", "check_schedule", "check_wave",
            "flush_schedule", "op_access", "staged_wave", "certificate",
-           "model", "schedcheck", "verify"]
+           "lint", "model", "schedcheck", "verify"]
+
+
+def __getattr__(name: str) -> Any:
+    if name == "lint":
+        import importlib
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -93,6 +93,10 @@ def gf_matmul(A: np.ndarray, B: np.ndarray) -> np.ndarray:
     return out
 
 
+def gf_matvec(A: np.ndarray, x: np.ndarray) -> np.ndarray:
+    return gf_matmul(A, x.reshape(-1, 1)).reshape(-1)
+
+
 def gf_solve(A: np.ndarray, B: np.ndarray) -> np.ndarray:
     """Solve A X = B over GF(2^8) via Gaussian elimination (A square,
     invertible). Raises np.linalg.LinAlgError if singular."""
@@ -149,6 +153,11 @@ def gf_rank(A: np.ndarray) -> int:
     return rank
 
 
+def gf_inv_matrix(A: np.ndarray) -> np.ndarray:
+    n = A.shape[0]
+    return gf_solve(A, np.eye(n, dtype=np.uint8))
+
+
 # ---------------------------------------------------------------------------
 # Bit-matrix form: GF(2^8) constant-multiplication as an 8x8 GF(2) matrix.
 # ---------------------------------------------------------------------------
@@ -168,6 +177,11 @@ def _bitmatrix_table() -> np.ndarray:
             for o in range(8):
                 T[c, o, i] = (int(prod) >> o) & 1
     return T
+
+
+def gf_bitmatrix(c: int) -> np.ndarray:
+    """8x8 GF(2) matrix of multiplication by constant c (LSB-first bits)."""
+    return _bitmatrix_table()[c]
 
 
 def expand_coding_matrix_to_bits(A: np.ndarray) -> np.ndarray:

@@ -9,7 +9,10 @@
 //   folds the s rows with 16-byte vector loads (neighbouring threads read
 //   neighbouring chunks, so each warp reads 512 contiguous bytes per row),
 //   then writes one 16-byte result. The grid is (ceil(B / (16 * threads)),
-//   S). A ragged B, or a base that is not 16-byte aligned, takes the same
+//   S), at most 1024 wide, unless the caller asks for another width (the
+//   launch planner `kernels/autotune.py` takes a measured one): the chunks
+//   are walked grid-stride, so any width from 1 up to the blocks the chunks
+//   need is correct. A ragged B, or a base that is not 16-byte aligned, takes the same
 //   body with byte loads and a masked tail, so no padding and no int32
 //   lane view are needed.
 //
@@ -71,10 +74,10 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-inline unsigned grid_x(int64_t B) {
+// blocks of kThreads chunks that B bytes need
+inline int64_t blocks_for(int64_t B) {
   const int64_t chunks = (B + 15) / 16;
-  const int64_t blocks = (chunks + kThreads - 1) / kThreads;
-  return unsigned(blocks < kMaxGridX ? (blocks > 0 ? blocks : 1) : kMaxGridX);
+  return (chunks + kThreads - 1) / kThreads;
 }
 
 }  // namespace
@@ -83,10 +86,17 @@ extern "C" const char* repro_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// `grid_x` 0 is the default width, min(blocks, kMaxGridX); any other from
+// 1 up to the blocks B needs is launched as asked, and a width outside that
+// range is refused.
 extern "C" int repro_xor_fold(const void* src, void* dst, long long S,
-                              long long s, long long B, void* stream) {
+                              long long s, long long B, long long grid_x,
+                              void* stream) {
   if (S <= 0 || s <= 0 || B <= 0 || S > 65535) return int(cudaErrorInvalidValue);
-  const dim3 grid(grid_x(B), unsigned(S));
+  const int64_t blocks = blocks_for(B);
+  if (grid_x < 0 || grid_x > blocks) return int(cudaErrorInvalidValue);
+  if (grid_x == 0) grid_x = blocks < kMaxGridX ? blocks : kMaxGridX;
+  const dim3 grid{unsigned(grid_x), unsigned(S)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* in = static_cast<const uint8_t*>(src);
   uint8_t* o = static_cast<uint8_t*>(dst);

@@ -48,8 +48,10 @@
 //     passes' global accesses. Data is read once; the output is written once
 //     per pass. Output widths 8m > 240 run as N tiles of at most 30 output
 //     rows, one instantiation per launch, each tile with its own passes.
-//   - Roles. A persistent grid, one CTA of three warpgroups per SM, walks
-//     tiles of 128 byte positions of one stripe. Warpgroup 0 drops to 40
+//   - Roles. A persistent grid, by default one CTA of three warpgroups per
+//     SM (the caller may ask for another grid: `resolve_grid`; the launch
+//     planner `kernels/autotune.py` takes a measured one), walks tiles of
+//     128 byte positions of one stripe, grid-stride. Warpgroup 0 drops to 40
 //     registers (`setmaxnreg.dec`) and one thread keeps a 3-stage ring of
 //     data tiles full with TMA (a 3-D tensor map over (S, k, B), box
 //     (1, 4 x steps of a pass, 128), zero fill past k and B, `mbarrier`
@@ -561,20 +563,39 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* data,
 }
 
 template <int N>
+cudaError_t allow_smem(size_t smem) {
+  return cudaFuncSetAttribute(&gf_matmul_sm90_kernel<N>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              int(smem));
+}
+
+template <int N>
 int launch(const CUtensorMap& tm, const uint8_t* cols, uint8_t* out,
-           const Plan& p, size_t smem, cudaStream_t st) {
-  auto* fn = &gf_matmul_sm90_kernel<N>;
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  int device = 0, sms = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+           const Plan& p, size_t smem, unsigned grid, cudaStream_t st) {
+  cudaError_t err = allow_smem<N>(smem);
   if (err != cudaSuccess) return int(err);
-  // persistent: one CTA per SM (or per tile, if fewer)
-  const unsigned grid = unsigned(p.tiles < sms ? p.tiles : sms);
-  fn<<<grid, kThreads, smem, st>>>(tm, cols, out, p);
+  gf_matmul_sm90_kernel<N><<<grid, kThreads, smem, st>>>(tm, cols, out, p);
   return int(cudaGetLastError());
+}
+
+// CTAs of the instantiation for width N that one SM holds at once, as the
+// occupancy calculator finds them (shared memory, threads and registers)
+template <int N>
+cudaError_t resident_of(size_t smem, int* out) {
+  cudaError_t err = allow_smem<N>(smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, &gf_matmul_sm90_kernel<N>, kThreads, smem);
+}
+
+cudaError_t resident(int N, size_t smem, int* out) {
+  switch (N) {
+    case 32: return resident_of<32>(smem, out);
+    case 64: return resident_of<64>(smem, out);
+    case 128: return resident_of<128>(smem, out);
+    case 176: return resident_of<176>(smem, out);
+    default: return resident_of<240>(smem, out);
+  }
 }
 
 constexpr int round1024(int64_t x) { return int((x + 1023) & ~int64_t(1023)); }
@@ -616,20 +637,50 @@ bool make_plan(long long S, long long m, long long k, long long B, Plan* p,
   return true;
 }
 
+// The grid of a launch. `grid` 0 is the persistent default, one CTA per
+// SM (or per tile, if fewer), which needs the SM count alone. Any other
+// grid from 1 up to the tiles and to the CTAs the SMs hold at once
+// (`resident` x SMs) is launched as asked: every CTA walks its tiles
+// grid-stride, so any such grid is correct. A grid outside that range is
+// refused.
+cudaError_t resolve_grid(const Plan& p, int N, size_t smem, long long grid,
+                         unsigned* out) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  if (grid == 0) {
+    *out = unsigned(p.tiles < sms ? p.tiles : sms);
+    return cudaSuccess;
+  }
+  if (grid < 0 || grid > p.tiles) return cudaErrorInvalidValue;
+  int res = 0;
+  err = resident(N, smem, &res);
+  if (err != cudaSuccess) return err;
+  if (grid > (long long)res * sms) return cudaErrorInvalidValue;
+  *out = unsigned(grid);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // cols (m, k, 8), data (S, k, B) with rows of pitch B rounded up to 16
-// bytes from a 16-byte-aligned base, out (S, m, B).
+// bytes from a 16-byte-aligned base, out (S, m, B); `grid` as
+// `resolve_grid` takes it (0: the persistent default).
 extern "C" int repro_gf_matmul(const void* cols, const void* data, void* out,
                                long long S, long long m, long long k,
-                               long long B, void* stream) {
+                               long long B, long long grid, void* stream) {
   Plan p;
   int N = 0;
   size_t smem = 0;
+  unsigned g = 0;
   if (!make_plan(S, m, k, B, &p, &N, &smem) ||
       (reinterpret_cast<uintptr_t>(data) & 15) ||
       (reinterpret_cast<uintptr_t>(cols) & 7))
     return int(cudaErrorInvalidValue);
+  const cudaError_t err = resolve_grid(p, N, smem, grid, &g);
+  if (err != cudaSuccess) return int(err);
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return int(cudaErrorNotSupported);
   CUtensorMap tm;
@@ -639,37 +690,39 @@ extern "C" int repro_gf_matmul(const void* cols, const void* data, void* out,
   auto* o = static_cast<uint8_t*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (N) {
-    case 32: return launch<32>(tm, c, o, p, smem, st);
-    case 64: return launch<64>(tm, c, o, p, smem, st);
-    case 128: return launch<128>(tm, c, o, p, smem, st);
-    case 176: return launch<176>(tm, c, o, p, smem, st);
-    default: return launch<240>(tm, c, o, p, smem, st);
+    case 32: return launch<32>(tm, c, o, p, smem, g, st);
+    case 64: return launch<64>(tm, c, o, p, smem, g, st);
+    case 128: return launch<128>(tm, c, o, p, smem, g, st);
+    case 176: return launch<176>(tm, c, o, p, smem, g, st);
+    default: return launch<240>(tm, c, o, p, smem, g, st);
   }
 }
 
-// What `repro_gf_matmul` would launch for the same shape on the current
-// device, without launching: out[0..7] = threads, grid (CTAs), dynamic
-// shared memory bytes, N width, N tiles, K passes, steps per K pass,
-// output rows per N tile.
+// What `repro_gf_matmul` would launch for the same shape and `grid` on the
+// current device, without launching: out[0..8] = threads, grid (CTAs),
+// dynamic shared memory bytes, N width, N tiles, K passes, steps per K
+// pass, output rows per N tile, and the CTAs one SM holds at once by the
+// occupancy calculator (`resident`: the grid's ceiling is that times the
+// SMs). A grid `repro_gf_matmul` would refuse is refused here too.
 extern "C" int repro_gf_plan(long long S, long long m, long long k,
-                             long long B, long long* out) {
+                             long long B, long long grid, long long* out) {
   Plan p;
-  int N = 0;
+  int N = 0, res = 0;
   size_t smem = 0;
+  unsigned g = 0;
   if (!make_plan(S, m, k, B, &p, &N, &smem))
     return int(cudaErrorInvalidValue);
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaError_t err = resolve_grid(p, N, smem, grid, &g);
+  if (err == cudaSuccess) err = resident(N, smem, &res);
   if (err != cudaSuccess) return int(err);
   out[0] = kThreads;
-  out[1] = p.tiles < sms ? p.tiles : sms;
+  out[1] = g;
   out[2] = (long long)smem;
   out[3] = N;
   out[4] = p.nnt;
   out[5] = p.npk;
   out[6] = p.spp;
   out[7] = p.rows_nt;
+  out[8] = res;
   return 0;
 }

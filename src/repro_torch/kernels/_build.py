@@ -96,11 +96,11 @@ def _compile(out: pathlib.Path) -> None:
 def _load(path: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     p, i64 = ctypes.c_void_p, ctypes.c_longlong
-    lib.repro_xor_fold.argtypes = [p, p, i64, i64, i64, p]
+    lib.repro_xor_fold.argtypes = [p, p, i64, i64, i64, i64, p]
     lib.repro_xor_fold.restype = ctypes.c_int
-    lib.repro_gf_matmul.argtypes = [p, p, p, i64, i64, i64, i64, p]
+    lib.repro_gf_matmul.argtypes = [p, p, p, i64, i64, i64, i64, i64, p]
     lib.repro_gf_matmul.restype = ctypes.c_int
-    lib.repro_gf_plan.argtypes = [i64, i64, i64, i64,
+    lib.repro_gf_plan.argtypes = [i64, i64, i64, i64, i64,
                                   ctypes.POINTER(ctypes.c_longlong)]
     lib.repro_gf_plan.restype = ctypes.c_int
     for fn in (lib.repro_flash_fwd_f32, lib.repro_flash_fwd_bf16):
@@ -157,6 +157,17 @@ def device_guard(device):
     if device.index is None or device.index == torch.cuda.current_device():
         return contextlib.nullcontext()
     return torch.cuda.device(device)
+
+
+def grid_arg(grid: int | None, name: str) -> int:
+    """A C entry's grid argument: 0 (the kernel's default) for None, else
+    a positive int, which the entry launches or refuses."""
+    if grid is None:
+        return 0
+    if isinstance(grid, bool) or not isinstance(grid, int) or grid < 1:
+        raise ValueError(f"{name}: grid must be None or an int >= 1, "
+                         f"got {grid!r}")
+    return grid
 
 
 def check(err: int, name: str) -> None:

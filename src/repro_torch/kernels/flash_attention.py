@@ -36,6 +36,13 @@ in `fp32_launches`); a CPU tensor takes `flash_decode_plain` or
 fallback from one to the other. `block_q` / `block_k` shape only the
 prefill plain version's block loop; the kernels' tiles are fixed by their
 design.
+
+Head dims no kernel takes (hubert's 80, kimi-k2's 112, MLA's 288 / 256)
+attend blockwise, the reference's jnp route: `flash_attention_blockwise`
+runs `flash_attention_fwd_plain` on real tensors and, on fake tensors
+(the dry-run's), the operator `torch.ops.repro_torch.
+flash_attention_blockwise_fwd`, so a 32K-token layer traces as one op with
+the loop's FLOPs (`blockwise_flops`) instead of thousands of block ops.
 """
 from __future__ import annotations
 
@@ -48,7 +55,7 @@ from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
-from .autotune import H100_SMS
+from .autotune import H100_SMS, device_sms
 
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
@@ -159,6 +166,19 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Hq, Sq, dv), lse.reshape(B, Hq, Sq)
 
 
+def _live_block(q_start: int, k_start: int, bq: int, bk: int,
+                causal: bool, window: int) -> bool:
+    """Whether the block loop visits the key block at `k_start` for the
+    query block at `q_start`: the Pallas kernel's causal and window
+    skips."""
+    live = True
+    if causal:
+        live = k_start <= q_start + bq - 1
+    if window:
+        live = live and k_start + bk - 1 > q_start - window
+    return live
+
+
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = True,
                               window: int = 0,
@@ -188,12 +208,7 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
         acc = torch.zeros((B, Hkv, G, n, dv), dtype=torch.float32,
                           device=dev)
         for k_start in range(0, Skv, bk):
-            live = True
-            if causal:
-                live = k_start <= q_start + bq - 1
-            if window:
-                live = live and k_start + bk - 1 > q_start - window
-            if not live:
+            if not _live_block(q_start, k_start, bq, bk, causal, window):
                 continue
             kb = kf[:, :, k_start:k_start + bk]
             vb = vf[:, :, k_start:k_start + bk]
@@ -247,17 +262,18 @@ def bound_bytes(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, dk: int,
             + 4 * B * Hq * Sq)
 
 
-_SMS: dict[int, int] = {}
-
-
-def _sms(device: torch.device) -> int:
-    """The card's SM count (cached per device index)."""
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if index not in _SMS:
-        _SMS[index] = torch.cuda.get_device_properties(
-            index).multi_processor_count
-    return _SMS[index]
+def blockwise_flops(B: int, Hq: int, Sq: int, Skv: int, dk: int, dv: int,
+                    *, causal: bool = True, window: int = 0,
+                    block_q: int = DEFAULT_BLOCK_Q,
+                    block_k: int = DEFAULT_BLOCK_K) -> int:
+    """What `flash_attention_fwd_plain`'s two einsums count: 2 * B * Hq *
+    n_q * n_k * (dk + dv) summed over the blocks its causal and window
+    tests keep, masked pairs inside a kept block included."""
+    bq, bk = min(block_q, Sq), min(block_k, Skv)
+    pairs = sum(min(bq, Sq - q0) * min(bk, Skv - k0)
+                for q0 in range(0, Sq, bq) for k0 in range(0, Skv, bk)
+                if _live_block(q0, k0, bq, bk, causal, window))
+    return 2 * B * Hq * pairs * (dk + dv)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -348,7 +364,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             int(window), ctypes.c_float(dk ** -0.5))
     with _build.device_guard(q.device):
         if decode:
-            n_split = decode_splits(B * Hkv, Skv, _sms(q.device))
+            n_split = decode_splits(B * Hkv, Skv, device_sms(q.device))
             # the slices' fp32 partials in one workspace: rows x dv of
             # acc, then rows x 2 of (m, l)
             rows = B * Hkv * n_split * (Hq // Hkv) * Sq
@@ -397,3 +413,75 @@ def _launch_flops(q_shape, k_shape, v_shape, causal, window, *args,
                   **kwargs) -> int:
     return bound_flops(q_shape[0], q_shape[1], q_shape[2], k_shape[2],
                        q_shape[3], v_shape[3], causal=causal, window=window)
+
+
+# ---------------------------------------------------------------------------
+# The blockwise forward as one operator for fake tensors:
+# `torch.ops.repro_torch.flash_attention_blockwise_fwd(q, k, v, causal,
+# window) -> (out, lse)`. Its implementation is `flash_attention_fwd_plain`;
+# the dry-run traces it as one op (a 32K-token layer is ~2,100-4,100 block
+# pairs of ~15 ops each in the loop) with the loop's exact FLOPs.
+# ---------------------------------------------------------------------------
+
+_LIB.define("flash_attention_blockwise_fwd(Tensor q, Tensor k, Tensor v, "
+            "bool causal, int window) -> (Tensor, Tensor)")
+
+
+def _blockwise_impl(q, k, v, causal, window):
+    return flash_attention_fwd_plain(q, k, v, causal=causal, window=window)
+
+
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("flash_attention_blockwise_fwd", _blockwise_impl, _key)
+
+
+@torch.library.register_fake("repro_torch::flash_attention_blockwise_fwd",
+                             lib=_LIB)
+def _blockwise_fake(q, k, v, causal, window):
+    return _launch_fake(q, k, v, causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_blockwise_fwd)
+def _blockwise_flops(q_shape, k_shape, v_shape, causal, window, *args,
+                     **kwargs) -> int:
+    return blockwise_flops(q_shape[0], q_shape[1], q_shape[2], k_shape[2],
+                           q_shape[3], v_shape[3], causal=causal,
+                           window=window)
+
+
+def _blockwise_workspace(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> list[torch.Tensor]:
+    """Tensors of the size the block loop holds besides its inputs and
+    outputs at its peak: fp32 copies of q, k and v (none for fp32 inputs),
+    the (B, Hkv, G, bq, dv) accumulator with its running max and sum, and
+    four fp32 score blocks (s, s - m, p and p masked)."""
+    B, Hq, Sq, _ = q.shape
+    Skv, dv = k.shape[2], v.shape[-1]
+    bq, bk = min(DEFAULT_BLOCK_Q, Sq), min(DEFAULT_BLOCK_K, Skv)
+    f32 = torch.float32
+    ws = [] if q.dtype == f32 else [
+        torch.empty_like(t, dtype=f32) for t in (q, k, v)]
+    ws.append(q.new_empty((B, Hq, bq, dv + 2), dtype=f32))
+    ws.append(q.new_empty((4, B, Hq, bq, bk), dtype=f32))
+    return ws
+
+
+def flash_attention_blockwise(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              window: int = 0
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The blockwise forward (head dims without a kernel): a real tensor,
+    on either device, runs `flash_attention_fwd_plain`; a fake tensor (the
+    dry-run's) takes the operator `torch.ops.repro_torch.
+    flash_attention_blockwise_fwd`, one traced op with the loop's FLOPs.
+    Around that call it holds `_blockwise_workspace`, so that a
+    `MemTracker` above the fake mode sees the loop's peak: what a fake
+    implementation allocates runs beneath the dispatch modes, where no
+    tracker sees it."""
+    if isinstance(q, FakeTensor):
+        ws = _blockwise_workspace(q, k, v)
+        out = torch.ops.repro_torch.flash_attention_blockwise_fwd(
+            q, k, v, bool(causal), int(window))
+        del ws
+        return out
+    return flash_attention_fwd_plain(q, k, v, causal=causal, window=window)

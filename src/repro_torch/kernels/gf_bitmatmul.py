@@ -29,6 +29,7 @@ in `launches`), a CPU tensor takes `gf_bitmatmul_plain` (counted in
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -83,17 +84,42 @@ def pass_bytes(S: int, m: int, k: int, B: int) -> int:
 
 
 _PLAN_FIELDS = ("threads", "grid", "smem", "N", "n_tiles", "k_passes",
-                "steps_per_pass", "rows_per_tile")
+                "steps_per_pass", "rows_per_tile", "resident")
 
 
-def host_plan(S: int, m: int, k: int, B: int) -> dict:
+def host_plan(S: int, m: int, k: int, B: int, grid: int | None = None
+              ) -> dict:
     """The plan `repro_gf_matmul` would launch on the current CUDA device
-    for this shape, from the host code itself (`repro_gf_plan`), without
-    launching: threads, grid, dynamic shared memory and the tiling of
-    `kernel_plan`."""
+    for this shape and `grid` (None: the persistent default), from the
+    host code itself (`repro_gf_plan`), without launching: threads, grid,
+    dynamic shared memory, the tiling of `kernel_plan`, and the CTAs one
+    SM holds at once by the occupancy calculator (shared memory, threads
+    and registers: the grid's ceiling is that times the SMs). Raises for
+    a grid the launch would refuse."""
     out = (ctypes.c_longlong * len(_PLAN_FIELDS))()
-    _build.check(_build.library().repro_gf_plan(S, m, k, B, out), "gf_plan")
+    g = _build.grid_arg(grid, "gf_bitmatmul")
+    _build.check(_build.library().repro_gf_plan(S, m, k, B, g, out),
+                 "gf_plan")
     return dict(zip(_PLAN_FIELDS, out))
+
+
+@functools.lru_cache(maxsize=256)
+def _resident(m: int, k: int, index: int) -> int:
+    with _build.device_guard(torch.device("cuda", index)):
+        return host_plan(1, m, k, 1)["resident"]
+
+
+def resident_ctas(m: int, k: int, device) -> int:
+    """CTAs of the kernel that one SM of `device` holds at once for an
+    (m, k) product (`host_plan`'s `resident`, which depends on the matrix
+    alone), asked of the host code once per shape and card; 1 off the
+    card, where the plain version takes no grid."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 1
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _resident(m, k, index)
 
 
 def _check(cols: torch.Tensor, data: torch.Tensor) -> None:
@@ -115,13 +141,19 @@ def _check(cols: torch.Tensor, data: torch.Tensor) -> None:
         raise ValueError(f"cols on {cols.device}, data on {data.device}")
 
 
-def gf_bitmatmul(cols: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+def gf_bitmatmul(cols: torch.Tensor, data: torch.Tensor,
+                 grid: int | None = None) -> torch.Tensor:
     """(S, m, B) = A @ data over GF(2^8), one launch for all S stripes.
 
     cols: (m, k, 8) uint8 bit columns of A (`core.gf.gf_bit_columns`).
-    data: (S, k, B) uint8."""
+    data: (S, k, B) uint8. grid: the CTAs to launch (None: the persistent
+    default, min(tiles, SMs); `autotune.plan_matmul_tiles` plans it); the
+    launch raises for a grid past the tiles or past what the SMs hold
+    (`host_plan`). The plain version computes the same bytes whatever
+    the grid."""
     global launches, plain_calls
     _check(cols, data)
+    g = _build.grid_arg(grid, "gf_bitmatmul")
     m, k, _ = cols.shape
     S, _, B = data.shape
     if data.device.type == "cpu":
@@ -148,7 +180,7 @@ def gf_bitmatmul(cols: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     stream = _build.stream_handle(data.device)
     with _build.device_guard(data.device):
         err = lib.repro_gf_matmul(cols.data_ptr(), data.data_ptr(),
-                                  out.data_ptr(), S, m, k, B, stream)
+                                  out.data_ptr(), S, m, k, B, g, stream)
     _build.check(err, "gf_matmul")
     with _COUNT_LOCK:
         launches += 1

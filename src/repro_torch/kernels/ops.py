@@ -25,6 +25,12 @@ pattern, ceil(S / window) for a streamed write. All mutation goes through
 `_count_launch` under a lock; `launch_scope()` gives a caller a
 thread-local delta counter. The kernel modules' own `launches` counters
 count only real CUDA launches.
+
+Every launch is planned, as the reference's ops plan their tiles
+(`autotune.plan_matmul_tiles` / `plan_xor_tiles`): a measured plan's grid
+is passed to the kernel where `REPRO_TORCH_AUTOTUNE_CACHE` names timings
+for the shape, and otherwise no grid, so the kernel takes its own
+default.
 """
 from __future__ import annotations
 
@@ -41,7 +47,8 @@ from repro_torch.core.codec import DecodePlan, RecoveryPlan
 from repro_torch.core.codes import Code
 from repro_torch.core.gf import gf_bit_columns
 
-from .gf_bitmatmul import gf_bitmatmul
+from .autotune import device_sms, plan_matmul_tiles, plan_xor_tiles
+from .gf_bitmatmul import gf_bitmatmul, resident_ctas
 from .xor_reduce import xor_reduce
 
 KERNEL_LAUNCHES: collections.Counter = collections.Counter()
@@ -134,21 +141,40 @@ def _u8(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _gf(M: np.ndarray, blocks: torch.Tensor) -> torch.Tensor:
+    """One planned launch of the GF kernel: (S, k, B) -> (S, m, B)."""
+    cols = _cols(M, blocks.device)
+    S, k, B = blocks.shape
+    m = cols.shape[0]
+    plan = plan_matmul_tiles(k, m, B, S=S, sms=device_sms(blocks.device),
+                             resident=resident_ctas(m, k, blocks.device))
+    _count_launch("gf_bitmatmul")
+    return gf_bitmatmul(cols, blocks.contiguous(), grid=_grid(plan))
+
+
+def _xor(blocks: torch.Tensor) -> torch.Tensor:
+    """One planned launch of the XOR kernel: (S, s, B) -> (S, B)."""
+    S, s, B = blocks.shape
+    plan = plan_xor_tiles(s, B, S=S)
+    _count_launch("xor_reduce")
+    return xor_reduce(blocks.contiguous(), grid=_grid(plan))
+
+
+def _grid(plan) -> int | None:
+    """A measured plan's grid; None (the kernel's own default, which the
+    model's plan describes) otherwise."""
+    return plan.grid_steps if plan.source == "measured" else None
+
+
 def apply_matrix(M: np.ndarray, blocks: torch.Tensor) -> torch.Tensor:
     """GF(2^8) matmul M (m, k) @ blocks (k, B) -> (m, B)."""
-    blocks = _u8(blocks)
-    cols = _cols(M, blocks.device)
-    _count_launch("gf_bitmatmul")
-    return gf_bitmatmul(cols, blocks.contiguous()[None])[0]
+    return _gf(M, _u8(blocks)[None])[0]
 
 
 def apply_matrix_many(M: np.ndarray, blocks: torch.Tensor) -> torch.Tensor:
     """Stripe-batched GF(2^8) matmul: M (m, k) @ blocks (S, k, B) ->
     (S, m, B), one launch for the whole batch."""
-    blocks = _u8(blocks)
-    cols = _cols(M, blocks.device)
-    _count_launch("gf_bitmatmul")
-    return gf_bitmatmul(cols, blocks.contiguous())
+    return _gf(M, _u8(blocks))
 
 
 def encode(code: Code, data: torch.Tensor) -> torch.Tensor:
@@ -165,16 +191,12 @@ def encode_many(code: Code, data: torch.Tensor) -> torch.Tensor:
 
 def xor_fold(blocks: torch.Tensor) -> torch.Tensor:
     """(s, B) uint8 -> (B,) uint8 XOR-fold."""
-    blocks = _u8(blocks)
-    _count_launch("xor_reduce")
-    return xor_reduce(blocks.contiguous()[None])[0]
+    return _xor(_u8(blocks)[None])[0]
 
 
 def xor_fold_many(blocks: torch.Tensor) -> torch.Tensor:
     """(S, s, B) uint8 -> (S, B) uint8 XOR-fold along axis 1, one launch."""
-    blocks = _u8(blocks)
-    _count_launch("xor_reduce")
-    return xor_reduce(blocks.contiguous())
+    return _xor(_u8(blocks))
 
 
 def _stack(blocks: dict[int, torch.Tensor], sources, dim: int

@@ -54,10 +54,17 @@ def _check(blocks: torch.Tensor) -> None:
                          f"got S={S}, s={s}")
 
 
-def xor_reduce(blocks: torch.Tensor) -> torch.Tensor:
-    """(S, s, B) uint8 -> (S, B) uint8 XOR-fold along axis 1, one launch."""
+def xor_reduce(blocks: torch.Tensor, grid: int | None = None
+               ) -> torch.Tensor:
+    """(S, s, B) uint8 -> (S, B) uint8 XOR-fold along axis 1, one launch.
+
+    grid: the blocks along B (None: the default, min(blocks, 1024);
+    `autotune.plan_xor_tiles` plans it); the launch raises for a width
+    past the blocks B needs. The plain version computes the same bytes
+    whatever the width."""
     global launches, plain_calls
     _check(blocks)
+    g = _build.grid_arg(grid, "xor_reduce")
     S, s, B = blocks.shape
     if blocks.device.type == "cpu":
         with _COUNT_LOCK:
@@ -74,7 +81,7 @@ def xor_reduce(blocks: torch.Tensor) -> torch.Tensor:
     stream = _build.stream_handle(blocks.device)
     with _build.device_guard(blocks.device):
         err = lib.repro_xor_fold(blocks.data_ptr(), out.data_ptr(),
-                                 S, s, B, stream)
+                                 S, s, B, g, stream)
     _build.check(err, "xor_fold")
     with _COUNT_LOCK:
         launches += 1

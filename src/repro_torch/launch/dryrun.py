@@ -39,6 +39,7 @@ import logging
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 ART_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
@@ -193,35 +194,33 @@ def _run_all(args) -> None:
     running: list = []
     t_all = time.perf_counter()
 
-    def reap(block: bool) -> None:
+    def reap() -> None:
+        """Collects the first cell that has ended, or outlived the timeout
+        (killed), if any."""
         for item in list(running):
-            (a, s, mesh_kind), proc, t0 = item
+            (a, s, mesh_kind), proc, log, t0 = item
             dt = time.perf_counter() - t0
-            if proc.poll() is None and dt < args.timeout and not block:
-                continue
-            try:
-                _, err = proc.communicate(timeout=max(
-                    1.0, args.timeout - dt))
-                ok = proc.returncode == 0
-            except subprocess.TimeoutExpired:
+            if proc.poll() is None:
+                if dt < args.timeout:
+                    continue
                 proc.kill()
-                proc.communicate()
-                ok, err = False, "TIMEOUT"
+                proc.wait()
             running.remove(item)
-            dt = time.perf_counter() - t0
-            if ok:
+            log.seek(0)
+            err = log.read() if dt < args.timeout else "TIMEOUT"
+            log.close()
+            if proc.returncode == 0:
                 print(f"[ok]   {a} x {s} x {mesh_kind}  ({dt:.0f}s)",
                       flush=True)
             else:
                 failures.append((a, s, mesh_kind, err[-2000:]))
                 print(f"[FAIL] {a} x {s} x {mesh_kind}  ({dt:.0f}s)\n"
                       f"{err[-2000:]}", flush=True)
-            if not block:
-                return
+            return
 
     for a, s, mesh_kind in todo:
         while len(running) >= args.jobs:
-            reap(block=False)
+            reap()
             time.sleep(0.2)
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
                "--arch", a, "--shape", s, "--mesh", mesh_kind,
@@ -229,12 +228,16 @@ def _run_all(args) -> None:
                "--tag", args.tag]
         if args.seq_parallel:
             cmd.append("--seq-parallel")
+        # stderr to a file: a pipe nobody reads while the cell runs
+        # could fill and stall it
+        log = tempfile.TemporaryFile("w+")
         running.append(((a, s, mesh_kind),
                         subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
-                                         stderr=subprocess.PIPE, text=True),
-                        time.perf_counter()))
-    while running:
-        reap(block=True)
+                                         stderr=log, text=True),
+                        log, time.perf_counter()))
+    while running:          # in the order they end: each time is its own
+        reap()
+        time.sleep(0.2)
     print(f"\n{len(todo) - len(failures)} of {len(todo)} cells traced in "
           f"{time.perf_counter() - t_all:.0f}s")
     if failures:

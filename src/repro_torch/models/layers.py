@@ -269,7 +269,9 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool, window: int
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """(out, fp32 lse) through the route of `flash_attention`: blockwise
-    for head dims the kernels lack, else `fa.flash_attention_fwd`, whose
+    for head dims the kernels lack (`fa.flash_attention_blockwise`: the
+    block loop, or for a fake tensor one traced operator), else
+    `fa.flash_attention_fwd`, whose
     own route sends bf16 calls of at most `fa.DECODE_ROWS` rows a kv head
     (Hq / Hkv x Sq: the cross-attention decode step) to the split-KV
     decode kernel and every other call to the prefill kernel of its
@@ -279,7 +281,7 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if (dk, dv) not in fa.HEAD_DIMS and dk % 128:
         with _BLOCKWISE_LOCK:
             blockwise_calls += 1
-        return fa.flash_attention_fwd_plain(q, k, v, causal=causal,
+        return fa.flash_attention_blockwise(q, k, v, causal=causal,
                                             window=window)
     return fa.flash_attention_fwd(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=causal,

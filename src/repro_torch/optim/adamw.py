@@ -134,6 +134,30 @@ def _host(fn):
         return fn()
 
 
+def bf16_dtensor_parameters(model: torch.nn.Module) -> int:
+    """Replace each DTensor parameter of `model` that is not bf16 (the rg
+    blocks' fp32 `lam` on a mesh) by a bf16 parameter of its values, in
+    every module that holds it, as `models.model.shard_model` places
+    parameters; returns how many. `adamw_update` then writes the master
+    copy into it in place. It cannot retype a DTensor parameter itself:
+    `.data` retypes the wrapper alone, not its local shard and spec, and
+    `torch.utils.swap_tensors` refuses a parameter that anything holds a
+    weak reference to, as a `MemTracker`'s gradient hooks do in every
+    traced train step (`launch.dryrun`)."""
+    from torch.distributed.tensor import DTensor
+    new = {}
+    for module in model.modules():
+        for name, p in list(module._parameters.items()):
+            if not isinstance(p, DTensor) or p.dtype == torch.bfloat16:
+                continue
+            if id(p) not in new:
+                new[id(p)] = torch.nn.Parameter(
+                    p.detach().to(torch.bfloat16),
+                    requires_grad=p.requires_grad)
+            module._parameters[name] = new[id(p)]
+    return len(new)
+
+
 @torch.no_grad()
 def adamw_update(grads: Sequence[torch.Tensor], opt_state: dict,
                  cfg: AdamWConfig, params: Sequence[torch.Tensor]) -> dict:
@@ -142,8 +166,15 @@ def adamw_update(grads: Sequence[torch.Tensor], opt_state: dict,
     `master.to(bf16)` into `params`. Returns the stats {"lr", "grad_norm"}
     (fp32 0-d tensors). DTensor state (a state on a mesh) is updated
     shard by shard, in place: grads, master copies, moments and parameters
-    share their placements."""
+    share their placements, and every DTensor parameter must be bf16
+    already (`bf16_dtensor_parameters`)."""
     from torch.distributed.tensor import DTensor
+    params = list(params)
+    if any(isinstance(p, DTensor) and p.dtype != torch.bfloat16
+           for p in params):
+        raise TypeError("a DTensor parameter that is not bf16 cannot become "
+                        "bf16 in place: replace it first "
+                        "(`bf16_dtensor_parameters`)")
     b1, b2 = cfg.b1, cfg.b2
 
     def schedule():
@@ -157,7 +188,6 @@ def adamw_update(grads: Sequence[torch.Tensor], opt_state: dict,
     grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
 
     masters, ms, vs = opt_state["master"], opt_state["m"], opt_state["v"]
-    params = list(params)
     if not len(grads) == len(masters) == len(ms) == len(vs) == len(params):
         raise ValueError("grads, optimizer state and params differ in length")
     for g, m, v, w, p in zip(grads, ms, vs, masters, params):
@@ -169,11 +199,6 @@ def adamw_update(grads: Sequence[torch.Tensor], opt_state: dict,
         w.sub_(upd.mul_(lr_f))
         if p.dtype == torch.bfloat16:
             p.copy_(w)
-        elif isinstance(p, DTensor):
-            # `.data` would retype the wrapper alone, not its local shard:
-            # the parameter object takes a bf16 DTensor's contents whole
-            torch.utils.swap_tensors(p, torch.nn.Parameter(
-                w.to(torch.bfloat16), requires_grad=p.requires_grad))
         else:
             p.data = w.to(torch.bfloat16)
     opt_state["step"] = step

@@ -43,7 +43,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (Transformer, forward, init_params,
                                       param_leaves, params_from_jax,
                                       replicating, shard_input, tree_of)
-from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                               bf16_dtensor_parameters)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -277,6 +278,9 @@ def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
                 for g in grads:
                     g.mul_(inv)
             loss, nll, aux = loss * inv, nll * inv, aux * inv
+        if mesh is not None:
+            # a fp32 leaf becomes bf16, as the unsharded update makes it
+            bf16_dtensor_parameters(state.model)
         stats = adamw_update(grads, state.opt, ocfg, state.params)
         del grads
         state.step = state.step + 1

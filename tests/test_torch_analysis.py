@@ -51,12 +51,12 @@ def fresh_plan_caches():
 
 
 def test_lazy_submodules_reachable_as_in_the_reference():
-    for name in ("certificate", "model", "schedcheck", "verify"):
+    for name in ("certificate", "lint", "model", "schedcheck", "verify"):
         assert getattr(analysis, name).__name__ == f"repro_torch.analysis.{name}"
         assert name in analysis.__all__
     assert analysis.analyze_flush is not None        # hazards, as before
     with pytest.raises(AttributeError):
-        analysis.lint                                # noqa: B018
+        analysis.no_such_pillar                      # noqa: B018
 
 
 # ---------------------------------------------------------------------------

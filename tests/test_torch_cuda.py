@@ -98,6 +98,7 @@ def test_gf_matches_plain(card, S, m, k, B, kind, offset):
     cols = torch.from_numpy(gf_bit_columns(_matrix(kind, m, k)))
     flat = _bytes(B, (S * k * B + offset,))
     data = flat[offset:].view(S, k, B)
+    # repro-lint: allow=RA001
     got = gfk.gf_bitmatmul(cols.to(card), flat.to(card)[offset:].view(S, k, B))
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), gfk.gf_bitmatmul_plain(cols, data))
@@ -110,11 +111,12 @@ def test_gf_call_is_one_launch_of_the_tensor_core_kernel(card):
     cols = torch.from_numpy(gf_bit_columns(_matrix("encode", 30, 180)))
     data = _bytes(7, (2, 180, 4096)).to(card)
     cols = cols.to(card)
+    # repro-lint: allow=RA001
     gfk.gf_bitmatmul(cols, data)                       # built and warm
     torch.cuda.synchronize()
     before = (gfk.launches, gfk.plain_calls)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        gfk.gf_bitmatmul(cols, data)
+        gfk.gf_bitmatmul(cols, data)  # repro-lint: allow=RA001
         torch.cuda.synchronize()
     assert (gfk.launches, gfk.plain_calls) == (before[0] + 1, before[1])
     kernels = [e.name for e in prof.events()
@@ -133,6 +135,7 @@ def test_gf_unaligned_view_and_decode_matrix(card):
     k = plan.M.shape[1]
     flat = _bytes(1, (2 * k * 2048 + 1,))
     view = flat[1:].view(2, k, 2048)                  # 1-byte offset base
+    # repro-lint: allow=RA001
     got = gfk.gf_bitmatmul(cols.to(card), flat.to(card)[1:].view(2, k, 2048))
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), gfk.gf_bitmatmul_plain(cols, view))
@@ -142,7 +145,7 @@ def test_gf_unaligned_view_and_decode_matrix(card):
                                    (4, 29, 4097)])
 def test_xor_matches_plain(card, S, s, B):
     blocks = _bytes(s * B, (S, s, B))
-    got = xrk.xor_reduce(blocks.to(card))
+    got = xrk.xor_reduce(blocks.to(card))  # repro-lint: allow=RA001
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), xrk.xor_reduce_plain(blocks))
 
@@ -151,7 +154,8 @@ def test_wrappers_count_launches_only_on_the_card(card):
     gfk.reset_counts()
     xrk.reset_counts()
     x = _bytes(0, (1, 3, 64)).to(card)
-    xrk.xor_reduce(x)
+    xrk.xor_reduce(x)  # repro-lint: allow=RA001
+    # repro-lint: allow=RA001
     gfk.gf_bitmatmul(torch.ones((1, 3, 8), dtype=torch.uint8, device=card), x)
     assert (xrk.launches, xrk.plain_calls) == (1, 0)
     assert (gfk.launches, gfk.plain_calls) == (1, 0)
@@ -1008,6 +1012,7 @@ def test_flash_operator_launches_the_kernel(card):
                for sh in ((2, 8, 256, 128), (2, 2, 256, 128),
                           (2, 2, 256, 128)))
     fak.reset_counts()
+    # repro-lint: allow=RA001
     out, lse = torch.ops.repro_torch.flash_attention_fwd(q, k, v, True, 0)
     assert fak.launches == 1 and fak.plain_calls == 0
     want, want_lse = fak.flash_attention_fwd_plain(q, k, v, causal=True)
@@ -1062,3 +1067,118 @@ def test_sharded_step_on_the_card_is_the_unsharded_step(card):
     assert got_losses == want_losses
     assert all(torch.equal(a, b) for a, b in zip(flat(want, []),
                                                  flat(got, [])))
+
+
+# ---------------------------------------------------------------------------
+# The launch planner: any grid the planner may choose is correct
+# ---------------------------------------------------------------------------
+
+def _delta_terms(card):
+    """The delta-terms shape (21 x 1 over one 1 MiB stripe) on the card."""
+    cols = torch.from_numpy(gf_bit_columns(
+        _bytes(21, (21, 1)).numpy())).to(card)
+    return cols, _bytes(22, (1, 1, 1 << 20)).to(card)
+
+
+def test_every_candidate_grid_gives_the_same_bytes(card):
+    """Each grid `measure_matmul_tiles` would time at the delta-terms
+    shape, and grids below the SMs that a timings entry may name, launch
+    and give the plain version's bytes."""
+    from repro_torch.kernels import autotune
+    cols, data = _delta_terms(card)
+    sms = autotune.device_sms(card)
+    want = gfk.gf_bitmatmul_plain(cols.cpu(), data.cpu())
+    resident = gfk.resident_ctas(21, 1, card)
+    grids = autotune.matmul_candidates(1, 21, 1 << 20, sms=sms,
+                                       resident=resident)
+    assert grids[0] == sms and len(grids) == resident
+    for g in sorted({1, 2, 3, sms // 2, sms - 1, *grids}):
+        before = gfk.launches
+        got = gfk.gf_bitmatmul(cols, data, grid=g)  # repro-lint: allow=RA001
+        torch.cuda.synchronize()
+        assert gfk.launches == before + 1
+        assert torch.equal(got.cpu(), want), g
+
+
+@pytest.mark.parametrize("grid", [None, 1, 2, 131])
+def test_host_plan_reports_the_asked_grid(card, grid):
+    """`host_plan(..., grid=g)` is the launch the kernel would make: g
+    itself, or the persistent default for None, with the plan's tiling
+    and the CTAs an SM holds at once beside it (one: the kernel's 168
+    registers a thread fill an SM's register file)."""
+    from repro_torch.kernels import autotune
+    sms = autotune.device_sms(card)
+    plan = gfk.host_plan(1, 21, 1, 1 << 20, grid=grid)
+    model = autotune.matmul_plan(1, 21, 1 << 20, sms=sms)
+    assert plan["grid"] == (model.grid_steps if grid is None else grid)
+    assert plan["smem"] == model.smem_bytes
+    assert plan["resident"] == gfk.resident_ctas(21, 1, card) >= 1
+
+
+def test_grid_beyond_the_sms_capacity_raises(card):
+    """A grid past what the SMs hold at once (the occupancy calculator's
+    count, registers included), or past the tiles, is refused by the host
+    code (plan and launch alike) rather than launched as some other grid;
+    the wrapper launches nothing."""
+    from repro_torch.kernels import autotune
+    cols, data = _delta_terms(card)
+    sms = autotune.device_sms(card)
+    over = sms * gfk.resident_ctas(21, 1, card) + 1
+    before = gfk.launches
+    with pytest.raises(RuntimeError, match="gf_plan"):
+        gfk.host_plan(1, 21, 1, 1 << 20, grid=over)
+    with pytest.raises(RuntimeError, match="gf_matmul"):
+        gfk.gf_bitmatmul(cols, data, grid=over)  # repro-lint: allow=RA001
+    # 4096 bytes are 32 tiles: a CTA more is refused, 32 launch
+    small = data[:, :, :4096].contiguous()
+    tiles = 4096 // 128
+    with pytest.raises(RuntimeError, match="gf_plan"):
+        gfk.host_plan(1, 21, 1, 4096, grid=tiles + 1)
+    with pytest.raises(RuntimeError, match="gf_matmul"):
+        gfk.gf_bitmatmul(cols, small, grid=tiles + 1)  # repro-lint: allow=RA001
+    assert gfk.launches == before
+    gfk.gf_bitmatmul(cols, small, grid=tiles)  # repro-lint: allow=RA001
+    assert gfk.launches == before + 1
+    blocks = _bytes(3, (2, 3, 4096)).to(card)
+    with pytest.raises(RuntimeError, match="xor_fold"):
+        # repro-lint: allow=RA008
+        xrk.xor_reduce(blocks, grid=2)           # repro-lint: allow=RA001
+
+
+@pytest.mark.parametrize("grid", [1, 2, 128, 256])
+def test_every_xor_grid_width_gives_the_same_bytes(card, grid):
+    """The XOR kernel at S=23, s=20, 1 MiB, from one block wide up to the
+    blocks the bytes need, against the plain version."""
+    blocks = _bytes(grid, (23, 20, 1 << 20))
+    got = xrk.xor_reduce(blocks.to(card), grid=grid)  # repro-lint: allow=RA001
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), xrk.xor_reduce_plain(blocks))
+
+
+def test_measured_plan_is_launched_through_ops(card, tmp_path, monkeypatch):
+    """A measured entry in the timings file reaches the launch: `ops`
+    plans it (source "measured"), the host code reports that grid, and
+    the bytes stay the plain version's."""
+    from repro_torch.kernels import autotune, ops
+    sms = autotune.device_sms(card)
+    path = tmp_path / "timings.json"
+    autotune.save_timings({autotune.matmul_key(1, 21, 1 << 20):
+                           {"grid_steps": sms // 2}}, path)
+    monkeypatch.setenv(autotune.CACHE_ENV, str(path))
+    autotune.invalidate_plan_cache()
+    try:
+        M = _bytes(21, (21, 1)).numpy()
+        plan = autotune.plan_matmul_tiles(
+            1, 21, 1 << 20, sms=sms, resident=gfk.resident_ctas(21, 1, card))
+        assert (plan.source, plan.grid_steps) == ("measured", sms // 2)
+        assert gfk.host_plan(1, 21, 1, 1 << 20,
+                             grid=plan.grid_steps)["grid"] == sms // 2
+        data = _bytes(22, (1, 1 << 20))
+        got = ops.apply_matrix(M, data.to(card))
+        torch.cuda.synchronize()
+        want = gfk.gf_bitmatmul_plain(
+            torch.from_numpy(gf_bit_columns(M)), data[None])[0]
+        assert torch.equal(got.cpu(), want)
+    finally:
+        monkeypatch.delenv(autotune.CACHE_ENV)
+        autotune.invalidate_plan_cache()

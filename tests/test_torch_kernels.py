@@ -92,9 +92,11 @@ def test_gf_plain_edge_values():
     k, B = 7, 100
     data = np.full((k, B), 0xFF, dtype=np.uint8)
     eye = _t(gf_bit_columns(np.eye(k, dtype=np.uint8)))
+    # repro-lint: allow=RA001
     assert np.array_equal(gfk.gf_bitmatmul(eye, _t(data)[None])[0].numpy(),
                           data)
     zeros = _t(gf_bit_columns(np.zeros((3, k), dtype=np.uint8)))
+    # repro-lint: allow=RA001
     assert not gfk.gf_bitmatmul(zeros, _t(data)[None]).any()
 
 
@@ -109,11 +111,14 @@ def test_xor_plain_matches_oracle(s):
 
 def test_wrappers_reject_what_the_kernel_does_not_take():
     with pytest.raises(TypeError):
+        # repro-lint: allow=RA001
         xrk.xor_reduce(torch.zeros((1, 2, 16), dtype=torch.int32))
     with pytest.raises(ValueError):
+        # repro-lint: allow=RA001
         xrk.xor_reduce(torch.zeros((2, 16), dtype=torch.uint8))
     cols = torch.zeros((2, 3, 8), dtype=torch.uint8)
     with pytest.raises(ValueError):
+        # repro-lint: allow=RA001
         gfk.gf_bitmatmul(cols, torch.zeros((1, 4, 16), dtype=torch.uint8))
     with pytest.raises(TypeError):
         ops.xor_fold_many(np.zeros((1, 2, 16), dtype=np.uint8))

@@ -130,7 +130,8 @@ def build_variants(srcs: dict[str, str]) -> dict[str, ctypes.CDLL]:
         print(f"[build {name}] spill_bytes_per_function={spills}", flush=True)
         lib = ctypes.CDLL(str(OUT / f"{name}.so"))
         p, i64 = ctypes.c_void_p, ctypes.c_longlong
-        lib.repro_gf_matmul.argtypes = [p, p, p, i64, i64, i64, i64, p]
+        lib.repro_gf_matmul.argtypes = [p, p, p, i64, i64, i64, i64, i64,
+                                        p]
         lib.repro_gf_matmul.restype = ctypes.c_int
         libs[name] = lib
     return libs
@@ -153,7 +154,7 @@ def launcher(lib: ctypes.CDLL, cols, data, out, stream: int):
 
     def run() -> None:
         err = lib.repro_gf_matmul(cols.data_ptr(), data.data_ptr(),
-                                  out.data_ptr(), S, m, k, B, stream)
+                                  out.data_ptr(), S, m, k, B, 0, stream)
         if err:
             raise SystemExit(f"CUDA error {err}")
     return run
@@ -238,7 +239,7 @@ def main() -> None:
               (rand_matrix(8, 64), 2, 777, 3), (rand_matrix(16, 255), 2, 300, 0)]
     for M, S, B, offset in checks:
         cols, data = operands(M, S, B, offset)
-        got = gfk.gf_bitmatmul(cols, data)
+        got = gfk.gf_bitmatmul(cols, data)  # repro-lint: allow=RA001
         want = gfk.gf_bitmatmul_plain(cols, data)
         torch.cuda.synchronize()
         bad = int((got != want).sum())
@@ -268,7 +269,7 @@ def main() -> None:
     for name, M, S in shapes:
         m, k = M.shape
         cols, data = operands(M, S, MIB)
-        got = gfk.gf_bitmatmul(cols, data)
+        got = gfk.gf_bitmatmul(cols, data)  # repro-lint: allow=RA001
         if name.startswith("delta") or name == "encode":
             want = gfk.gf_bitmatmul_plain(cols, data)
             torch.cuda.synchronize()
@@ -276,6 +277,7 @@ def main() -> None:
                 raise SystemExit(f"FAIL: {name} differs from the plain version")
         del got
         ms, lo, hi = time_ms(
+            # repro-lint: allow=RA001
             lambda cols=cols, data=data: gfk.gf_bitmatmul(cols, data),
             args.reps)
         nbytes = gfk.bound_bytes(S, m, k, MIB)
