@@ -1060,6 +1060,7 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
 
     import torch
 
+    from repro_torch import obs
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fak
     from repro_torch.launch.serve import serve
@@ -1261,7 +1262,9 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
     check(rel < 0.05, f"decode vs prefill {rel:.4f} of max |logit|")
 
     # 6.6 where a decode step's time goes: host clock over NSTEP steps,
-    # then the device time of NSTEP more from torch.profiler
+    # then the device time of NSTEP more from torch.profiler, under the
+    # port's spans as profiler ranges (each range's device ms a step: the
+    # kernels launched under it)
     tok = step[:, 0].argmax(dim=-1)[:, None]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1270,22 +1273,26 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / NSTEP
     try:
-        ops = device_ops(lambda i: forward(model, tok, mode="decode",
-                                           cache=cache, pos=P + NSTEP + i),
-                         NSTEP)
+        ranges: dict[str, float] = {}
+        with obs.recording(ranges=True):
+            ops = device_ops(lambda i: forward(
+                model, tok, mode="decode", cache=cache, pos=P + NSTEP + i),
+                NSTEP, ranges)
         device_ms = sum(ms for _, ms, _ in ops)
         top = sorted(ops, key=lambda o: -o[1])[:4]
         phase(f"{tag}decode split", step_ms=f"{step_ms:.3f}",
               device_ms=f"{device_ms:.3f}",
               device_share=f"{device_ms / step_ms:.4f}",
               device_ops_per_step=sum(c for _, _, c in ops) // NSTEP,
-              top=json.dumps([(k[:40], round(ms, 4)) for k, ms, _ in top]))
+              top=json.dumps([(k[:40], round(ms, 4)) for k, ms, _ in top]),
+              span_device_ms=json.dumps({k: round(ms, 4)
+                                         for k, ms in ranges.items()}))
     except RuntimeError as err:         # the profiler is untried there
         phase(f"{tag}decode split", step_ms=f"{step_ms:.3f}",
               device_ms="not measured", profiler_error=repr(str(err)[:200]))
     del cache
 
-    # 6.7 the flash kernel's share of one prefill, from CUDA events
+    # 6.7 the flash kernel's share of a warm prefill, from the port's spans
     prefill_ms, flash_ms, calls = attention_ms(
         lambda: forward(model, prompts, mode="prefill", vision=vision))
     phase(f"{tag}prefill split", prefill_ms=f"{prefill_ms:.3f}",
@@ -1299,41 +1306,34 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
 
 
 def attention_ms(run) -> tuple[float, float, int]:
-    """`run()` between two CUDA events, each `layers.flash_attention` call
-    in it between two more: (the run's ms, the calls' ms, the calls)."""
+    """`run()` once to warm up, then again between two CUDA events under
+    the port's span recorder: (the run's ms, its `attention` spans' device
+    ms, their count)."""
     import torch
 
-    from repro_torch.models import layers
-    events, inner = [], layers.flash_attention
-
-    def timed(*args, **kw):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        y = inner(*args, **kw)
-        e1.record()
-        events.append((e0, e1))
-        return y
-
-    layers.flash_attention = timed
-    try:
-        p0 = torch.cuda.Event(enable_timing=True)
-        p1 = torch.cuda.Event(enable_timing=True)
+    from repro_torch import obs
+    run()
+    p0 = torch.cuda.Event(enable_timing=True)
+    p1 = torch.cuda.Event(enable_timing=True)
+    with obs.recording() as rec:
         p0.record()
         run()
         p1.record()
-        p1.synchronize()
-    finally:
-        layers.flash_attention = inner
-    return (p0.elapsed_time(p1), sum(a.elapsed_time(b) for a, b in events),
-            len(events))
+    p1.synchronize()
+    attention = [s for s in rec.spans() if s.name == "attention"]
+    return (p0.elapsed_time(p1), sum(s.device_ms for s in attention),
+            len(attention))
 
 
-def device_ops(fn, reps: int) -> list[tuple[str, float, int]]:
+def device_ops(fn, reps: int, ranges: dict | None = None
+               ) -> list[tuple[str, float, int]]:
     """`fn(i)` for i < reps under torch.profiler: (name, device ms per
     call, count) of each device-side event (kernels, copies), as the
     profiler's own table totals them (a CPU op's self device time would
-    repeat them)."""
+    repeat them); the port's span ranges (`repro_torch.*`), which the
+    profiler also shows on the device, are left out, as they would count
+    their kernels twice. `ranges`, if given, gets each span range's device
+    ms per call: the kernels launched under its host range."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1342,8 +1342,15 @@ def device_ops(fn, reps: int) -> list[tuple[str, float, int]]:
         for i in range(reps):
             fn(i)
         torch.cuda.synchronize()
+    rows = prof.key_averages()
+    if ranges is not None:
+        ranges.update((e.key.removeprefix("repro_torch."),
+                       e.device_time_total / 1e3 / reps) for e in rows
+                      if e.device_type == DeviceType.CPU
+                      and e.key.startswith("repro_torch."))
     return [(e.key, e.self_device_time_total / 1e3 / reps, e.count)
-            for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+            for e in rows if e.device_type != DeviceType.CPU
+            and not e.key.startswith("repro_torch.")]
 
 
 def prefill_host_split(model, prompts, vision, tag: str) -> None:
@@ -1450,7 +1457,7 @@ def encode_path(cfg, model, cell: dict, seed: int, tag: str) -> dict:
         [round(r, 5) for r in rows]), bound=0.05, max_abs_logit=f"{scale:.4f}")
     check(max(rows) < 0.05, f"a sequence alone vs its batch row: {rows}")
 
-    # the attention share of one batch, from CUDA events
+    # the attention share of a warm batch, from the port's spans
     def encode():
         with torch.inference_mode():
             forward(model, batches[0], mode="train")

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.kernels import flash_attention as fa
 
 from . import partitioning as PT
@@ -275,14 +276,21 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     own route sends bf16 calls of at most `fa.DECODE_ROWS` rows a kv head
     (Hq / Hkv x Sq: the cross-attention decode step) to the split-KV
     decode kernel and every other call to the prefill kernel of its
-    dtype."""
+    dtype. Names the route on the open `attention` span."""
     global blockwise_calls
     dk, dv = q.shape[-1], v.shape[-1]
+    span = obs.current()
     if (dk, dv) not in fa.HEAD_DIMS and dk % 128:
         with _BLOCKWISE_LOCK:
             blockwise_calls += 1
+        if span is not None:
+            span.set(route="blockwise")
         return fa.flash_attention_blockwise(q, k, v, causal=causal,
                                             window=window)
+    if span is not None:
+        decode = fa.is_decode(q, k)
+        span.set(route=("decode" if decode else "kernel") if q.is_cuda
+                 else ("decode_plain" if decode else "plain"))
     return fa.flash_attention_fwd(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=causal,
                                   window=window)
@@ -326,13 +334,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     grad mode is on), so under `torch.no_grad` or `inference_mode` the
     call is the forward alone and saves nothing. With a mesh, q, k and v
     are DTensors placed by `_shard_attn_heads`, and each device attends
-    its own shards (`_flash_on_shards`)."""
+    its own shards (`_flash_on_shards`). Recorded as the span
+    `attention` (with a mesh, each shard's call), its route an attr
+    (`repro_torch.obs`)."""
     if mesh is not None:
         return _flash_on_shards(q, k, v, causal, window, mesh)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, bool(causal), int(window))
-    return _flash_forward(q, k, v, causal, window)[0]
+    with obs.span("attention"):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return _FlashAttention.apply(q, k, v, bool(causal), int(window))
+        return _flash_forward(q, k, v, causal, window)[0]
 
 
 def _whole_heads(x: torch.Tensor, mesh, heads: int) -> torch.Tensor:
@@ -916,7 +927,16 @@ def moe_ffn(params: MoE, x: torch.Tensor, cfg: ModelConfig, mesh=None
     dispatches, runs and
     combines the experts it holds, E / model of them, for the tokens of
     its batch shard (`_moe_experts`); the partial outputs are summed over
-    `model` by `cst`, where the reference's `cst` pins the combine."""
+    `model` by `cst`, where the reference's `cst` pins the combine.
+
+    Recorded as the span `moe`, with the children `moe.route` and those of
+    `_moe_experts` (`repro_torch.obs`)."""
+    with obs.span("moe"):
+        return _moe_ffn(params, x, cfg, mesh)
+
+
+def _moe_ffn(params: MoE, x: torch.Tensor, cfg: ModelConfig, mesh
+             ) -> tuple[torch.Tensor, torch.Tensor]:
     m = cfg.moe
     E, K = m.num_experts, m.num_experts_per_tok
     C = moe_capacity(m, x.shape[1])
@@ -926,8 +946,9 @@ def moe_ffn(params: MoE, x: torch.Tensor, cfg: ModelConfig, mesh=None
     x = cst(x, mesh, "B", None, None)
 
     def route(x, router):
-        probs = torch.softmax(x.float() @ router.float(), dim=-1)
-        return (probs, *_moe_route(probs, K))
+        with obs.span("moe.route"):
+            probs = torch.softmax(x.float() @ router.float(), dim=-1)
+            return (probs, *_moe_route(probs, K))
     weights = (params.w_gate, params.w_up, params.w_down)
     if mesh is None:
         probs, chosen, topi = route(x, params.router)
@@ -977,47 +998,54 @@ def _moe_experts(x: torch.Tensor, chosen: torch.Tensor, topi: torch.Tensor,
                  w_down: torch.Tensor, *, C: int, e0: int) -> torch.Tensor:
     """The dispatch, expert FFNs and combine of experts e0 .. e0 + E_l - 1
     (E_l = w_gate.shape[0]; every expert when e0 = 0 and E_l = E): each
-    token's output from those of its experts that kept it."""
+    token's output from those of its experts that kept it. Recorded as
+    the spans `moe.dispatch` (with the slots, E_l x B x C, and those
+    filled, `kept`), `moe.experts` and `moe.combine`."""
     B, S, D = x.shape
     E, E_l = chosen.shape[-1], w_gate.shape[0]
-    if E_l != E:
-        chosen = chosen[..., e0:e0 + E_l]
-    # per (row, expert): the top C tokens by routing weight
-    score = torch.where(chosen > 0, chosen, -1.0).transpose(1, 2)
-    gate_c, idx_c = top_k(score, C)                              # (B, E, C)
-    w_c = torch.where(gate_c > 0, gate_c, 0.0)
+    with obs.span("moe.dispatch", slots=E_l * B * C) as span:
+        if E_l != E:
+            chosen = chosen[..., e0:e0 + E_l]
+        # per (row, expert): the top C tokens by routing weight
+        score = torch.where(chosen > 0, chosen, -1.0).transpose(1, 2)
+        gate_c, idx_c = top_k(score, C)                          # (B, E, C)
+        if span is not None:
+            span.set(kept=(gate_c > 0).sum())
+        rows = torch.arange(B, device=x.device)[:, None, None]
+        xe = x[rows, idx_c]                                      # (B,E,C,D)
+        xe = xe.transpose(0, 1).reshape(E_l, B * C, D)
+    with obs.span("moe.experts"):
+        gate = torch.bmm(xe, w_gate)
+        up = torch.bmm(xe, w_up)
+        act = F.silu(gate.float()).to(x.dtype) * up
+        ye = torch.bmm(act, w_down)
+    with obs.span("moe.combine"):
+        w_c = torch.where(gate_c > 0, gate_c, 0.0)
+        ye = ye.reshape(E_l, B, C, D).transpose(0, 1)
+        ye = ye * w_c[..., None].to(ye.dtype)                    # (B,E,C,D)
 
-    rows = torch.arange(B, device=x.device)[:, None, None]
-    xe = x[rows, idx_c]                                          # (B,E,C,D)
-    xe = xe.transpose(0, 1).reshape(E_l, B * C, D)
-    gate = torch.bmm(xe, w_gate)
-    up = torch.bmm(xe, w_up)
-    act = F.silu(gate.float()).to(x.dtype) * up
-    ye = torch.bmm(act, w_down).reshape(E_l, B, C, D).transpose(0, 1)
-    ye = ye * w_c[..., None].to(ye.dtype)                        # (B,E,C,D)
-
-    # combine: token (b, s)'s slot in expert e, or -1, then its K experts'
-    # rows in expert order
-    slot = torch.full((B, E_l, S), -1, dtype=torch.long, device=x.device)
-    slot.scatter_(2, idx_c,
-                  torch.arange(C, device=x.device).expand(B, E_l, C))
-    experts = topi.sort(dim=-1).values                           # (B, S, K)
-    K = experts.shape[-1]
-    if E_l != E:                        # this device's experts only
-        local = experts - e0
-        mine = (local >= 0) & (local < E_l)
-        experts = local.clamp(0, E_l - 1)
-    kslot = slot.transpose(1, 2).gather(2, experts)              # (B, S, K)
-    if E_l != E:
-        kslot = torch.where(mine, kslot, -1)
-    flat = (experts * C + kslot.clamp_min(0)).reshape(B, S * K, 1)
-    picked = ye.reshape(B, E_l * C, D).gather(1, flat.expand(B, S * K, D))
-    picked = picked.reshape(B, S, K, D)
-    live = (kslot >= 0)[..., None]
-    out = torch.zeros((B, S, D), dtype=ye.dtype, device=x.device)
-    for j in range(K):
-        out = out + torch.where(live[:, :, j], picked[:, :, j], 0.0)
-    return out
+        # token (b, s)'s slot in expert e, or -1, then its K experts' rows
+        # in expert order
+        slot = torch.full((B, E_l, S), -1, dtype=torch.long, device=x.device)
+        slot.scatter_(2, idx_c,
+                      torch.arange(C, device=x.device).expand(B, E_l, C))
+        experts = topi.sort(dim=-1).values                       # (B, S, K)
+        K = experts.shape[-1]
+        if E_l != E:                    # this device's experts only
+            local = experts - e0
+            mine = (local >= 0) & (local < E_l)
+            experts = local.clamp(0, E_l - 1)
+        kslot = slot.transpose(1, 2).gather(2, experts)          # (B, S, K)
+        if E_l != E:
+            kslot = torch.where(mine, kslot, -1)
+        flat = (experts * C + kslot.clamp_min(0)).reshape(B, S * K, 1)
+        picked = ye.reshape(B, E_l * C, D).gather(
+            1, flat.expand(B, S * K, D)).reshape(B, S, K, D)
+        live = (kslot >= 0)[..., None]
+        out = torch.zeros((B, S, D), dtype=ye.dtype, device=x.device)
+        for j in range(K):
+            out = out + torch.where(live[:, :, j], picked[:, :, j], 0.0)
+        return out
 
 
 # ---------------------------------------------------------------------------

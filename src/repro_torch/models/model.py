@@ -35,6 +35,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
 
 from . import layers as L
@@ -188,7 +189,10 @@ class Transformer(nn.Module):
         pins them, and inputs that are not DTensors yet are split by
         `partitioning.input_sharding_for` (each rank passing the whole
         batch). `seq_parallel` splits the residual stream's sequence over
-        `model` in train mode (Megatron SP), as the reference's does."""
+        `model` in train mode (Megatron SP), as the reference's does.
+
+        Recorded as the root span `forward` (`repro_torch.obs`), the final
+        norm and the unembedding as its child `head`."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"mode {mode!r}")
         if remat not in ("none", "block"):
@@ -197,9 +201,11 @@ class Transformer(nn.Module):
             raise ValueError("decode needs a cache and a position")
         # (DTensor views of parameters fail under inference_mode: a sharded
         # prefill or decode runs under no_grad)
-        with (contextlib.nullcontext() if mode == "train"
-              else torch.inference_mode() if mesh is None
-              else torch.no_grad()), replicating(mesh):
+        with obs.span("forward", device=inputs.device, mode=mode,
+                      B=inputs.shape[0], S=inputs.shape[1]), \
+                (contextlib.nullcontext() if mode == "train"
+                 else torch.inference_mode() if mesh is None
+                 else torch.no_grad()), replicating(mesh):
             if mesh is not None:
                 inputs, vision = (None if t is None else shard_input(t, mesh)
                                   for t in (inputs, vision))
@@ -246,13 +252,14 @@ class Transformer(nn.Module):
                     if aux_b is not None:
                         aux_total = aux_total + aux_b
                     per_layer[si][bi].append(nc)
-        x = L.cst(L.rms_norm(x, self.final_norm, cfg.rms_eps), mesh, "B",
-                  None, None)
-        if cfg.tie_embeddings:
-            logits = x @ self.embed.t()
-        else:
-            logits = x @ self.unembed
-        logits = L.cst(logits, mesh, "B", None, "model")
+        with obs.span("head"):
+            x = L.cst(L.rms_norm(x, self.final_norm, cfg.rms_eps), mesh, "B",
+                      None, None)
+            if cfg.tie_embeddings:
+                logits = x @ self.embed.t()
+            else:
+                logits = x @ self.unembed
+            logits = L.cst(logits, mesh, "B", None, "model")
         if mode == "train":
             return logits, None, aux_total
         if mode == "decode":             # written in place: same tensors
