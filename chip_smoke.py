@@ -14,7 +14,10 @@ Drives the port's main path on one CUDA card and checks every byte:
      shared memory, K passes, N width; 2e-2 in bf16 and 2e-5 / 1e-4 in
      fp32 for attention, at head
      dims 64, 128 and 256: recurrentgemma's windowed MQA prefill and the
-     64-key tile's edges; llama-3.2-vision's cross-attention, not
+     64-key tile's edges; minicpm3's MLA prefill in the per-head form
+     (48 heads, G = 1, q and k zero past 96, v past 64, as
+     `layers._mla_heads` pads them to 128), with the padded bound and the
+     published one (40 heads at 96 / 64); llama-3.2-vision's cross-attention, not
      causal, over 6,404 keys at Sq 2,048 and Sq 1, to `CROSS_TOLS`,
      which the plain version over an unmasked key tail must fail; fp32,
      on the tensor
@@ -122,16 +125,17 @@ Drives the port's main path on one CUDA card and checks every byte:
      verify recipe's checkpoint and node-loss drill;
  11d. phase 11b's witness for MLA: minicpm3-4b at full width cut to 2
      layers, three steps on the card and on the CPU from one state, the
-     same bounds but m's, 3e-2 (`WITNESS_M_BOUND`); MLA attends
-     blockwise on both;
+     same bounds but m's, 3e-2 (`WITNESS_M_BOUND`); MLA attends in
+     the per-head form (96 / 64 padded to 128: the flash kernel on the
+     card, its plain version on the CPU);
  13. minicpm3-4b, the server's default arch, at full width (62 MLA
      layers, 4.40 B parameters, 8.79 GB) through phase 6's path: saved as
      47 stripes in windows of 8, one node lost, restored degraded byte
      for byte with zero cross-cluster bytes, rebuilt, 8 requests of 2048
-     + 32 tokens in batches of 4; every prefill attention layer blockwise
-     (MLA's absorbed head dims, 288 / 256, take no kernel: 124 blockwise
-     calls, no flash launch); decode against the latent cache checked
-     against prefill;
+     + 32 tokens in batches of 4; every prefill attention layer in the
+     per-head form on the flash kernel (96 / 64 padded to 128: 124
+     launches, nothing blockwise); decode on the absorbed latent cache
+     checked against prefill;
  14. phi3.5-moe at full width cut to 4 of its 32 layers (the 32-layer
      model's 83.7 GB do not fit the card): 5.46 B parameters, 10.93 GB
      with the fp32 routers, 58 stripes, the same drill and traffic; the
@@ -824,13 +828,13 @@ SERVE_CELLS = {
                               attention="kernel"),
     # phase 13: minicpm3-4b, the server's default arch, nothing cut: 62
     # MLA layers, 40 heads padded to 48, 8,791,979,008 bytes in 47
-    # stripes, windows of 8 as phase 9's; MLA attends on the absorbed
-    # latent (q, k 288 wide, v 256, one kv head), off the kernel's head
-    # dims: blockwise, as the reference routes it to jnp. The llama
+    # stripes, windows of 8 as phase 9's; MLA's prefill attends in the
+    # per-head form (q, k 64 + 32, v 64, each zero-padded to 128: the
+    # flash kernel), its decode on the absorbed latent cache. The llama
     # cell's traffic
     "minicpm3-4b": dict(params=4_395_989_504, stripes=47, window=8,
                         batch=4, requests=8, prompt=2048, gen=32,
-                        attention="blockwise"),
+                        attention="kernel"),
     # phase 14: phi3.5-moe at full width (d_model 4096, 32 q / 8 kv heads
     # at head dim 128: the bf16 flash kernel; 16 experts of d_ff 6400,
     # top 2, fp32 router), 10,928,332,800 bytes in 58 stripes; the llama
@@ -1115,13 +1119,15 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
     B, P, G, REQ = cell["batch"], cell["prompt"], cell["gen"], cell["requests"]
     fak.reset_counts()
     layers.reset_blockwise_calls()
+    layers.reset_mla_per_head_calls()
     torch.cuda.synchronize()
     out = serve(cfg, model, batch=B, requests=REQ, prompt_len=P, gen=G,
                 seed=seed, device=dev)
     flash = {"launches": fak.launches, "fp32_launches": fak.fp32_launches,
              "decode_launches": fak.decode_launches,
              "plain_calls": fak.plain_calls,
-             "blockwise_calls": layers.blockwise_calls}
+             "blockwise_calls": layers.blockwise_calls,
+             "mla_per_head_calls": layers.mla_per_head_calls}
     # the kernel's launches by mode: causal prefill (self-attention), not
     # causal at Sq > 1 (cross-attention prefill) and at Sq == 1
     # (cross-attention decode steps)
@@ -1159,6 +1165,13 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
         check(flash["decode_launches"] == modes["cross_decode"],
               f"{flash['decode_launches']} decode-kernel launches != "
               f"{modes['cross_decode']} cross-attention decode calls")
+    # MLA layers attend in the per-head form at prefill, once a layer a
+    # batch, and on the absorbed latent cache in decode (not counted)
+    mla_layers = sum(seg.count for seg in cfg.segments
+                     for kind in seg.blocks if kind == "mla")
+    check(flash["mla_per_head_calls"] == nbatches * mla_layers,
+          f"{flash['mla_per_head_calls']} MLA per-head calls != {nbatches} "
+          f"batches x {mla_layers} MLA layers")
     check(flash["fp32_launches"] == 0, "fp32 flash kernel on the serve path")
     check(flash["plain_calls"] == 0, "flash plain version on the serve path")
     for toks in out["tokens"]:
@@ -2178,8 +2191,9 @@ def train_witness(seed: int, arch: str = "llama3.2-3b",
     the first step's gradient leaf by leaf (the first moment m, (1 - b1) x
     the clipped gradient, within `WITNESS_M_BOUND[arch]` of each leaf's
     max |m|: 2e-2 for llama, 3e-2 for MLA), and the
-    attention's route on the card: through the flash kernel at llama's
-    head dim, blockwise at MLA's (on the CPU too). Exits on a miss."""
+    attention's route: through the flash kernel on the card (MLA in its
+    per-head form, padded to 128), its plain version on the CPU. Exits on
+    a miss."""
     import dataclasses
 
     import torch
@@ -2215,8 +2229,7 @@ def train_witness(seed: int, arch: str = "llama3.2-3b",
         TrainConfig(accum=TRAIN["accum"], remat=TRAIN["remat"]))
     per_step = WITNESS["layers"] * TRAIN["accum"] * 2
     m_bound = WITNESS_M_BOUND[arch]
-    kernel = cfg.mla is None            # MLA's 288 / 256 go blockwise
-    want_counts = (per_step, 0, 0) if kernel else (0, 0, per_step)
+    want_counts = (per_step, 0, 0)
     losses: dict[str, list[float]] = {"card": [], "cpu": []}
     for i in range(WITNESS["steps"]):
         tokens, labels = ds.batch(i)
@@ -2225,14 +2238,13 @@ def train_witness(seed: int, arch: str = "llama3.2-3b",
         card, got = step(card, tokens, labels)
         torch.cuda.synchronize()
         counts = (fak.launches, fak.plain_calls, layers.blockwise_calls)
-        layers.reset_blockwise_calls()
+        fak.reset_counts()
         t0 = time.perf_counter()
         host, want = step(host, tokens, labels)
         cpu_s = time.perf_counter() - t0
-        if not kernel:
-            check(layers.blockwise_calls == per_step,
-                  f"witness step {i}: {layers.blockwise_calls} blockwise "
-                  f"calls on the CPU, want {per_step}")
+        check(fak.plain_calls == per_step,
+              f"witness step {i}: {fak.plain_calls} plain calls on the "
+              f"CPU, want {per_step}")
         rel = {k: abs(float(got[k]) - float(want[k])) / abs(float(want[k]))
                for k in ("loss", "grad_norm")}
         losses["card"].append(float(got["loss"]))
@@ -2892,10 +2904,17 @@ def main() -> None:
                     bound_ms=b, bound_by=by, bound_share=b / ms)
 
     def flash_case(B, Hq, Hkv, Sq, Skv, d, dtype, causal, window=0,
-                   reps=30, plain_reps=2, tols=None):
+                   reps=30, plain_reps=2, tols=None, published=None):
         q, k, v = (torch.randn(sh, generator=gen, device=dev).to(dtype)
                    for sh in ((B, Hq, Sq, d), (B, Hkv, Skv, d),
                               (B, Hkv, Skv, d)))
+        if published:
+            # a model's narrower heads padded to d (MLA's per-head form):
+            # published = (heads, qk, v) of the model's own work; q and k
+            # zero past qk, v past v
+            _, pqk, pv = published
+            for t, w in ((q, pqk), (k, pqk), (v, pv)):
+                t[..., w:] = 0
 
         def kernel():
             return fak.flash_attention_fwd(q, k, v, causal=causal,
@@ -2985,6 +3004,19 @@ def main() -> None:
         b, by = bound_ms(
             fak.bound_bytes(B, Hq, Hkv, Sq, Skv, d, d, q.element_size()),
             *((ops, BF16_OPS_PER_S) if bf16 else (3 * ops, TF32_OPS_PER_S)))
+        pub = {}
+        if published:
+            ph, pqk, pv = published
+            pb, pby = bound_ms(
+                fak.bound_bytes(B, ph, ph, Sq, Skv, pqk, pv,
+                                q.element_size()),
+                fak.bound_flops(B, ph, Sq, Skv, pqk, pv, causal=causal,
+                                window=window), BF16_OPS_PER_S)
+            pub = dict(published_heads=ph, published_qk=pqk,
+                       published_v=pv, published_bound_ms=pb,
+                       published_bound_by=pby,
+                       published_bound_share=pb / ms,
+                       published_device_bound_share=pb / dms)
         phase("kernel flash_decode" if decode else "kernel flash_attention",
               B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Skv=Skv,
               d=d, dtype=str(dtype).replace("torch.", ""), causal=causal,
@@ -3002,12 +3034,14 @@ def main() -> None:
               device_ms=f"{dms:.4f}", library_device_ms=f"{ldms:.4f}",
               device_bound_share=f"{b / dms:.4f}",
               device_vs_library=f"{dms / ldms:.3f}",
-              TFLOP_s=f"{ops / (ms / 1e3) / 1e12:.1f}")
+              TFLOP_s=f"{ops / (ms / 1e3) / 1e12:.1f}",
+              **{key: (f"{x:.4f}" if isinstance(x, float) else x)
+                 for key, x in pub.items()})
         return dict(max_abs_err=err, ms=ms, op_ms=oms,
                     device_ms=dms, plain_ms=pms,
                     bound_ms=b, bound_by=by, bound_share=b / ms,
                     library_ms=lms, library_device_ms=ldms,
-                    lse_max_abs_err=lse_err, **split, **tail)
+                    lse_max_abs_err=lse_err, **split, **tail, **pub)
 
     rng = np.random.default_rng(2505)
     # a broken mbarrier ring would hang the card (the gf and flash kernels
@@ -3037,6 +3071,10 @@ def main() -> None:
     flash_case(1, 32, 8, 1024, 2048, 128, bf16, False)     # Sq != Skv
     flash_case(4, 32, 8, 1000, 1000, 128, bf16, True)      # ragged
     flash_case(2, 16, 4, 1024, 1024, 64, bf16, True)       # d = 64
+    # minicpm3's MLA prefill in the per-head form: 40 heads padded to 48,
+    # q and k 64 + 32 and v 64 wide, zero-padded to 128
+    flash_mla = flash_case(4, 48, 48, 2048, 2048, 128, bf16, True,
+                           published=(40, 96, 64))
     # fp32 (3xTF32 on the tensor cores) at d = 128, 64 and 256: a small
     # GQA shape, d = 64, then the llama and recurrentgemma prefill shapes
     flash_fp32 = {
@@ -3350,7 +3388,12 @@ def main() -> None:
              # (its decode shape is the flash_decode row's)
              cross_shapes={name: dict(r, launches=vision_path[
                  "cross_prefill"]) for name, r in flash_cross.items()
-                 if "Sq=2048" in name}),
+                 if "Sq=2048" in name},
+             # phase 13's MLA prefill in the per-head form, padded to 128
+             mla_shapes={"B=4 Hq=48 Hkv=48 S=2048 d=128 (qk 96, v 64)":
+                         dict(flash_mla, launches=prefill(mla_path),
+                              per_head_calls=mla_path[
+                                  "mla_per_head_calls"])}),
         dict(name="flash_attention_d256", kernel="flash_fwd_sm90_kernel<256>",
              route="cuda", source="src/repro_torch/csrc/flash_fwd_sm90.cu",
              replaces="src/repro/kernels/flash_attention.py:116",

@@ -3,7 +3,8 @@
 The `attn` and `local_attn` block kinds: RMSNorm, rotary embeddings, GQA
 self-attention with ghost-head padding (windowed, with a rotating window
 cache, for `local_attn`), SwiGLU; the `mla` kind's multi-head latent
-attention (absorbed form, latent cache); the `attn_moe` kind's MoE FFN
+attention (per-head form over the call's own tokens, absorbed form in
+decode, latent cache); the `attn_moe` kind's MoE FFN
 (token-choice top-k routing with per-row expert capacity, a Switch
 load-balance loss); the `rg` kind's Griffin recurrent block (RG-LRU); the
 `rwkv` kind's RWKV6 time-mix (chunked WKV scan, exact one-step decode) and
@@ -18,14 +19,17 @@ Attention in train and prefill mode routes by shape, as the reference's
 `_flash_fn` does: head dims the flash kernel is built for
 (`kernels.flash_attention.HEAD_DIMS`) and those that are multiples of 128
 go through its wrapper (the hand-written CUDA kernel on the card, its
-plain version on the CPU); every other head dim (MLA's 288 / 256
-included) takes the kernel's plain blockwise forward, the counterpart of
-the reference's jnp `_flash_fwd_impl`, on either device. Where autograd
-records the call, the backward is `flash_attention_bwd`, the reference's
-blockwise jnp `_flash_bwd_impl` in PyTorch (the reference has no Pallas
-backward). Decode attends one token against the cache with plain tensor
-ops, as the reference does with einsums; cross-attention decode goes
-through `flash_attention` (Sq = 1, not causal), as the reference's does.
+plain version on the CPU); every other head dim takes the kernel's plain
+blockwise forward, the counterpart of the reference's jnp
+`_flash_fwd_impl`, on either device. MLA attends over the call's own
+tokens in the per-head form, its widths zero-padded to a kernel instance
+(the reference attends on the absorbed latent, 288 / 256, in jnp). Where
+autograd records the call, the backward is `flash_attention_bwd`, the
+reference's blockwise jnp `_flash_bwd_impl` in PyTorch (the reference has
+no Pallas backward). Decode attends one token against the cache with
+plain tensor ops, as the reference does with einsums; cross-attention
+decode goes through `flash_attention` (Sq = 1, not causal), as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -248,6 +252,7 @@ class SwiGLU(nn.Module):
 # ---------------------------------------------------------------------------
 
 blockwise_calls = 0      # flash_attention calls routed off the kernel
+mla_per_head_calls = 0   # MLA attention calls in the per-head form
 _BLOCKWISE_LOCK = threading.Lock()
 
 
@@ -255,6 +260,12 @@ def reset_blockwise_calls() -> None:
     global blockwise_calls
     with _BLOCKWISE_LOCK:
         blockwise_calls = 0
+
+
+def reset_mla_per_head_calls() -> None:
+    global mla_per_head_calls
+    with _BLOCKWISE_LOCK:
+        mla_per_head_calls = 0
 
 
 def _chunk(size: int, target: int = 1024) -> int:
@@ -712,13 +723,18 @@ def _decode_window(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# MLA: multi-head latent attention (MiniCPM3 / DeepSeek), absorbed form
+# MLA: multi-head latent attention (MiniCPM3 / DeepSeek)
 # ---------------------------------------------------------------------------
 #
-# With W_uk absorbed into the query and W_uv applied after attention, MLA is
-# MQA with one key head of kv_lora + rope (288) and one value head of
-# kv_lora (256) over the latent, so the decode cache holds only the latent
-# `ckv` and the shared rotary key `kr`.
+# The decode cache holds only the latent `ckv` and the shared rotary key
+# `kr`. A decode step attends in the absorbed form: with W_uk absorbed into
+# the query and W_uv applied after attention, MLA is MQA with one key head
+# of kv_lora + rope (288) and one value head of kv_lora (256) over the
+# latent. Over the call's own tokens (train, prefill) the keys are as many
+# as the queries, so the up-projection of K and V costs what the absorption
+# of q and out would, and the per-head form attends at nope + rope (96) and
+# v (64) instead: 3.4 x fewer operations a (query, key) pair and head, on
+# a flash kernel instance.
 
 class MLA(nn.Module):
     """The MLA weights: the query's down-projection `w_dq` (d, q_lora),
@@ -772,15 +788,21 @@ class MLA(nn.Module):
 def mla_block(params: MLA, x: torch.Tensor, cfg: ModelConfig, mode: str,
               cache: dict | None, pos: int | None, mesh=None
               ) -> tuple[torch.Tensor, dict | None]:
-    """x: (B, S, D). Returns (out, new_cache). Attention runs on the
-    absorbed latent: q (B, H, S, kv_lora + rope) against one key head
-    concat(ckv, kr) and one value head ckv, through `flash_attention`
-    (blockwise at these head dims) or, in decode mode, `decode_attention`
-    against the latent cache, whose `ckv` and `kr` (B, S_max, *) get the
-    new token at `pos` in place (the same tensors come back as the new
-    cache). q is scaled in bf16 by qk_head^-0.5 then sqrt(kv_lora + rope),
-    two roundings as in the reference, so that attention's own
-    (kv_lora + rope)^-0.5 leaves the per-head scale."""
+    """x: (B, S, D). Returns (out, new_cache). Where the keys are the
+    call's own tokens (train, prefill) attention runs in the per-head
+    form (`_mla_heads`): W_uk and W_uv applied to the latent, each head's
+    q = [q_nope | q_rope], k = [k_nope | k_rope] and v zero-padded to the
+    smallest square kernel instance, one `flash_attention` call (counted
+    in `mla_per_head_calls`); the cache it returns is the latent
+    {"ckv", "kr"}. In decode mode it runs on the absorbed latent: q
+    (B, H, 1, kv_lora + rope) against one key head concat(ckv, kr) and one
+    value head ckv of the latent cache, whose `ckv` and `kr` (B, S_max, *)
+    get the new token at `pos` in place (the same tensors come back as the
+    new cache), through `decode_attention`. q is scaled in bf16 by
+    qk_head^-0.5 then sqrt(attention's head dim), two roundings as in the
+    reference, so that attention's own head-dim^-0.5 leaves the per-head
+    scale."""
+    global mla_per_head_calls
     c = cfg.mla
     B, S, _ = x.shape
     H = cfg.num_heads_padded
@@ -795,10 +817,10 @@ def mla_block(params: MLA, x: torch.Tensor, cfg: ModelConfig, mode: str,
     dkv = cst(x @ params.w_dkv, mesh, "B", None, None)
     ckv = rms_norm(dkv[..., :c.kv_lora_rank], params.kv_norm, cfg.rms_eps)
     k_rope = dkv[..., c.kv_lora_rank:][:, None]             # (B, 1, S, r)
-    # absorb W_uk: q_lat (B, H, S, kv_lora), bf16 as the reference's einsum
-    q_lat = torch.einsum("bshn,hnr->bhsr", q_nope, params.w_uk)
 
     if mode == "decode":
+        # absorb W_uk: q_lat (B, H, S, kv_lora), bf16 as the reference's
+        q_lat = torch.einsum("bshn,hnr->bhsr", q_nope, params.w_uk)
         where = torch.arange(pos, pos + 1, device=x.device)
         q_rope = apply_rope(q_rope, where, cfg.rope_theta)
         k_rope = apply_rope(k_rope, where, cfg.rope_theta)[:, 0]
@@ -815,22 +837,79 @@ def mla_block(params: MLA, x: torch.Tensor, cfg: ModelConfig, mode: str,
             out = decode_attention(qf * qk ** -0.5 * qf.shape[-1] ** 0.5, kf,
                                    ckv_cache[:, None], pos)
         new_cache = {"ckv": ckv_cache, "kr": kr_cache}
+        o = torch.einsum("bhsr,hrv->bshv", out, params.w_uv)
     else:
         positions = torch.arange(S, device=x.device)
         q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
         k_rope = apply_rope(k_rope, positions, cfg.rope_theta)[:, 0]
-        qf = torch.cat([q_lat, q_rope], dim=-1)
-        kf = torch.cat([ckv, k_rope], dim=-1)[:, None]      # (B, 1, S, 288)
-        qf, kf, vf = _shard_attn_heads(mesh, qf, kf, ckv[:, None])
-        out = flash_attention(qf * qk ** -0.5 * qf.shape[-1] ** 0.5, kf,
-                              vf, causal=cfg.causal, mesh=mesh)
+        k_nope = torch.einsum("bsr,hnr->bshn", ckv, params.w_uk)
+        v = torch.einsum("bsr,hrv->bshv", ckv, params.w_uv)
+        qh, kh, vh = _mla_heads_on(mesh, q_nope, q_rope, k_nope, v, k_rope)
+        with _BLOCKWISE_LOCK:
+            mla_per_head_calls += 1
+        out = flash_attention(qh, kh, vh, causal=cfg.causal, mesh=mesh)
+        o = out[..., :c.v_head_dim].transpose(1, 2)         # (B, S, H, v)
         new_cache = ({"ckv": ckv, "kr": k_rope} if mode == "prefill"
                      else None)
 
-    o = torch.einsum("bhsr,hrv->bshv", out, params.w_uv)
     o = o.reshape(B, S, H * c.v_head_dim)
     o = cst(o, mesh, "B", None, "model")
     return _row_parallel(o, params.wo, mesh), new_cache
+
+
+def mla_head_dim(qk: int, v: int) -> int:
+    """The per-head form's padded head dim: the smallest D with (D, D) a
+    flash kernel instance (`fa.HEAD_DIMS`) and D >= both widths."""
+    for dk, dv in sorted(fa.HEAD_DIMS):
+        if dk == dv >= max(qk, v):
+            return dk
+    raise ValueError(f"no flash kernel instance takes MLA's per-head dims "
+                     f"(q, k {qk}, v {v}); built for {fa.HEAD_DIMS}")
+
+
+def _mla_heads(q_nope: torch.Tensor, q_rope: torch.Tensor,
+               k_nope: torch.Tensor, v: torch.Tensor, k_rope: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """MLA's per-head attention inputs, each (B, H, S, D) with D
+    `mla_head_dim`: q = [q_nope | q_rope] scaled (see `mla_block`),
+    k = [k_nope | k_rope] (the rotary key shared by every head) and v,
+    each written once into its buffer and zero past its width (zero
+    columns add nothing to a dot product, so the attention is exact).
+    q_nope, k_nope, v: (B, S, H, *); q_rope (B, H, S, r); k_rope (B, S, r).
+    """
+    B, S, H, nope = k_nope.shape
+    qk, dv = nope + k_rope.shape[-1], v.shape[-1]
+    D = mla_head_dim(qk, dv)
+    qh, kh, vh = (v.new_empty((B, H, S, D)) for _ in range(3))
+    qh[..., :nope] = q_nope.transpose(1, 2)
+    qh[..., nope:qk] = q_rope
+    kh[..., :nope] = k_nope.transpose(1, 2)
+    kh[..., nope:qk] = k_rope[:, None]
+    vh[..., :dv] = v.transpose(1, 2)
+    for t, w in ((qh, qk), (kh, qk), (vh, dv)):
+        t[..., w:] = 0
+    return qh.mul_(qk ** -0.5).mul_(D ** 0.5), kh, vh
+
+
+def _mla_heads_on(mesh, q_nope, q_rope, k_nope, v, k_rope):
+    """`_mla_heads`, on a mesh on each device's shards, its outputs placed
+    as `_shard_attn_heads` places attention's: heads over `model` where
+    their count divides it; the rotary key whole, its gradient then a
+    partial sum over `model`."""
+    if mesh is None:
+        return _mla_heads(q_nope, q_rope, k_nope, v, k_rope)
+    B, S, H, _ = k_nope.shape
+    split = H % PT.axis_sizes(mesh).get("model", 1) == 0
+    by_s = ("B", None, "model" if split else None, None)
+    by_h = ("B", "model" if split else None, None, None)
+    in_pl = tuple(_cst_placements(tuple(t.shape), mesh, spec) for t, spec in
+                  ((q_nope, by_s), (q_rope, by_h), (k_nope, by_s),
+                   (v, by_s), (k_rope, ("B", None, None))))
+    out_pl = _cst_placements((B, H, S, 1), mesh, by_h)
+    grad_pl = in_pl[:4] + ((_partial_on(in_pl[4], mesh, ("model",))
+                            if split else in_pl[4]),)
+    return _on_shards(_mla_heads, mesh, (q_nope, q_rope, k_nope, v, k_rope),
+                      in_pl, (out_pl,) * 3, grad_pl)
 
 
 def _mla_decode_on_shards(mesh, qf, ckv, kr, ckv_cache, kr_cache,

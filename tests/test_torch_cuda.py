@@ -24,6 +24,8 @@ from repro_torch.models import (ModelConfig, forward, init_params,
                                 pad_cache_to, params_from_jax, params_to_tree,
                                 uniform_segments)
 
+from mla_absorbed import absorbed_prefill
+
 pytestmark = pytest.mark.cuda
 
 
@@ -524,7 +526,9 @@ def test_mla_smoke_on_the_card_matches_the_cpu(card):
     """minicpm3 SMOKE with ghost heads (4 -> 8) on the card against the
     same weights on the CPU, 40 tokens: train logits, and a prefill of 30
     then 10 decode steps against the latent cache, within 5e-2 of max
-    |logit|. MLA's head dims (24 + 8, 24) attend blockwise on both."""
+    |logit|. Train and prefill attend in the per-head form, (16 + 8, 16)
+    zero-padded to 64: the flash kernel once a layer on the card, its
+    plain version on the CPU; decode on the absorbed latent cache."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -540,7 +544,7 @@ def test_mla_smoke_on_the_card_matches_the_cpu(card):
     layers.reset_blockwise_calls()
     got, _, _ = forward(dev, tokens.to(card), mode="train")
     assert (fak.launches, fak.plain_calls, layers.blockwise_calls) == \
-        (0, 0, 2)
+        (2, 0, 0)
     want, _, _ = forward(host, tokens, mode="train")
     scale = want.float().abs().max().item()
     assert (got.cpu().float() - want.float()).abs().max().item() < 5e-2 * scale
@@ -552,6 +556,36 @@ def test_mla_smoke_on_the_card_matches_the_cpu(card):
                                  mode="decode", cache=cache, pos=i)
         assert (step[:, 0].cpu().float() - want[:, i].float()).abs().max() \
             .item() < 5e-2 * scale
+
+
+def test_mla_per_head_prefill_at_full_width_on_the_card(card):
+    """One minicpm3-4b MLA layer at its full widths (48 heads, q and k
+    64 + 32, v 64, padded to the kernel's 128) on a 2,048-token causal
+    prefill: the per-head form launches the flash kernel once, nothing
+    blockwise, and its output matches the absorbed form's (blockwise on
+    the card) within 2e-2 of max |out|."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("minicpm3-4b")
+    m = layers.MLA(cfg, torch.Generator().manual_seed(0), "cpu").to(card)
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(1, 2048, cfg.d_model)).astype(np.float32)).to(card).bfloat16()
+    with torch.inference_mode():
+        layers.reset_blockwise_calls()
+        _, want = absorbed_prefill(m, x, cfg)
+        assert layers.blockwise_calls == 1
+        fak.reset_counts()
+        layers.reset_blockwise_calls()
+        layers.reset_mla_per_head_calls()
+        got, cache = layers.mla_block(m, x, cfg, "prefill", None, None)
+        torch.cuda.synchronize()
+    assert (fak.launches, fak.decode_launches, fak.plain_calls,
+            layers.blockwise_calls, layers.mla_per_head_calls) == \
+        (1, 0, 0, 0, 1)
+    assert fak.mode_launches == {(True, False): 1}
+    assert tuple(cache["ckv"].shape) == (1, 2048, cfg.mla.kv_lora_rank)
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2 * scale
 
 
 @pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b"])

@@ -311,9 +311,10 @@ from repro_torch.train import (TrainConfig, init_train_state, loss_fn,
 rank, store_path, out_path = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 # one of each block kind whose sharded math has hand-written gradient
 # placements: attention and the row-parallel products, the MoE, the RG-LRU
-# conv and scan, the WKV scan
+# conv and scan, the WKV scan, MLA's per-head form (the rotary key every
+# head reads)
 ARCHS = ("llama3.2-3b", "phi3.5-moe-42b-a6.6b", "recurrentgemma-9b",
-         "rwkv6-7b")
+         "rwkv6-7b", "minicpm3-4b")
 dist.init_process_group("gloo", store=dist.FileStore(store_path, 4),
                         rank=rank, world_size=4)
 mesh = make_host_mesh(model_parallel=2, device="cpu")
@@ -395,7 +396,8 @@ dist.destroy_process_group()
 
 def test_four_processes_on_a_data_2_model_2_mesh(tmp_path):
     """Four gloo processes on a (data 2, model 2) CPU mesh, the SMOKE
-    llama, MoE (experts split over model), recurrentgemma and rwkv6: the
+    llama, MoE (experts split over model), recurrentgemma, rwkv6 and
+    minicpm3 (MLA's heads split over model, its rotary key whole): the
     placed state gathers to the unsharded state byte for byte, the first
     batch's fp32 gradients gather to the unsharded ones within 1e-4 of
     each leaf's own max |grad| (a gradient summed over half the batch, or

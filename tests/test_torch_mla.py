@@ -2,15 +2,21 @@
 
 The reference's weights (`init_mla`, `init_params` with PRNGKey(0)) go
 into the port through `params_from_jax`; the same inputs (numpy, from a
-seed) go through both. MLA attends on the absorbed latent: q and k are
-kv_lora + rope wide, v is kv_lora wide, one kv head. Those head dims are
-not multiples of 128, so both packages attend blockwise (the reference's
-jnp `_flash_fwd_impl`, the port's `flash_attention_fwd_plain`), and both
-round every matmul to bf16. Tolerances:
+seed) go through both. The reference attends on the absorbed latent: q
+and k are kv_lora + rope wide, v is kv_lora wide, one kv head, blockwise
+in jnp (`_flash_fwd_impl`). The port does so in decode only (against the
+latent cache); over the call's own tokens (train, prefill) it attends in
+the per-head form, each head's q, k (nope + rope) and v zero-padded to a
+flash kernel instance (64 at SMOKE), through the kernel's wrapper (its
+plain version `flash_attention_fwd_plain` on the CPU). Both round every
+matmul to bf16. Tolerances:
 
 - `mla_block`'s output, prefill and decode: 2e-2 of max |out| (measured
   when this test was written: at most 4.8e-3); the latent cache it
   returns: 2e-2 of max |leaf| (measured: equal);
+- the per-head form against the absorbed form on the same weights and
+  input: 1e-4 of max |out| in fp32, `BLOCK_TOL` in bf16; ghost heads'
+  attention outputs exactly zero;
 - the model's logits, train, prefill and every decode step: 5e-2 of max
   |logit|, the bound `tests/test_archs.py` holds decode against train
   with, as `tests/test_torch_model.py` does (measured: at most 1.5e-2
@@ -23,6 +29,7 @@ round every matmul to bf16. Tolerances:
   5.6e-3 in bf16, 6.9e-7 in fp32);
 - parameter trees and checkpoints: byte for byte.
 """
+import copy
 import dataclasses
 
 import jax
@@ -46,10 +53,13 @@ from repro_torch.ckpt import BlockStore, CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.core import make_unilrc
 from repro_torch.io import TorchBackend
+from repro_torch.kernels import flash_attention as fak
 from repro_torch.models import (abstract_params, forward, init_cache,
                                 init_params, layers, pad_cache_to,
                                 params_from_jax, params_to_tree)
 from repro_torch.topo import Topology
+
+from mla_absorbed import absorbed_prefill
 
 ARCH = "minicpm3-4b"
 BLOCK_TOL = 2e-2
@@ -119,15 +129,64 @@ def test_mla_block_prefill_matches_reference(variant):
     want, wc = RL.mla_block(layer0, xj, RL.Ctx(cfg=ref_cfg, mode="prefill",
                                                pos=None), None)
     layers.reset_blockwise_calls()
+    fak.reset_counts()
     with torch.inference_mode():
         got, gc = layers.mla_block(model.blocks[0].mla, xt, cfg, "prefill",
                                    None, None)
-    assert layers.blockwise_calls == 1           # 288 / 256: off the kernel
+    # the per-head form at (64, 64): the kernel's plain version, once
+    assert (layers.blockwise_calls, fak.plain_calls) == (0, 1)
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     assert _rel(want, got) < BLOCK_TOL
     for name in ("ckv", "kr"):
         assert tuple(gc[name].shape) == wc[name].shape
         assert _rel(wc[name], gc[name]) < BLOCK_TOL, name
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+def test_per_head_prefill_matches_the_absorbed_form(variant, dtype,
+                                                    monkeypatch):
+    """`mla_block`'s prefill (the per-head form, zero-padded to the kernel
+    instance 64) against the absorbed form on the same weights and input:
+    each head's attention output and the block's output within 1e-4 of
+    max |out| in fp32 and `BLOCK_TOL` in bf16; the ghost heads' outputs
+    and the padding's columns exactly zero; `mla_per_head_calls` counts
+    the prefill and not a decode step, which stays absorbed."""
+    _, cfg, _, model, _ = variant
+    td = torch.bfloat16 if dtype == "bf16" else torch.float32
+    tol = BLOCK_TOL if dtype == "bf16" else 1e-4
+    m = copy.deepcopy(model.blocks[0].mla).to(td)
+    x = _block_inputs(cfg)[1].to(td)
+    c, H = cfg.mla, cfg.num_heads
+    assert layers.mla_head_dim(c.qk_nope_head_dim + c.qk_rope_head_dim,
+                               c.v_head_dim) == 64
+    with torch.inference_mode():
+        layers.reset_blockwise_calls()
+        want_heads, want = absorbed_prefill(m, x, cfg)
+        assert layers.blockwise_calls == 1             # 288 / 256
+        seen = []
+        inner = layers.flash_attention
+
+        def tap(q, k, v, **kw):
+            seen.append((q.shape, k.shape, v.shape, inner(q, k, v, **kw)))
+            return seen[-1][-1]
+        monkeypatch.setattr(layers, "flash_attention", tap)
+        layers.reset_mla_per_head_calls()
+        layers.reset_blockwise_calls()
+        got, cache = layers.mla_block(m, x, cfg, "prefill", None, None)
+        assert (layers.mla_per_head_calls, layers.blockwise_calls) == (1, 0)
+        cache = {k: torch.cat([t, torch.zeros_like(t[:, :1])], dim=1)
+                 for k, t in cache.items()}
+        layers.mla_block(m, x[:, :1], cfg, "decode", cache, S)
+    assert layers.mla_per_head_calls == 1 and len(seen) == 1
+    (qs, ks, vs, out), = seen
+    Hp = cfg.num_heads_padded
+    assert qs == ks == vs == (2, Hp, S, 64) and out.dtype == td
+    assert not out[:, H:].any()                   # ghost heads
+    assert not out[..., c.v_head_dim:].any()      # v's zero columns
+    got_heads = out[..., :c.v_head_dim].transpose(1, 2)
+    assert _rel(want_heads[:, :, :H].float().numpy(), got_heads[:, :, :H]) \
+        < tol
+    assert got.dtype == td and _rel(want.float().numpy(), got) < tol
 
 
 def test_mla_block_decode_matches_reference(variant):

@@ -337,16 +337,19 @@ def test_serve_run_recurrentgemma_on_the_cpu():
 
 def test_serve_default_arch_needs_mla():
     """The server's default arch, minicpm3-4b, runs MLA: its SMOKE config
-    serves on the CPU, every prefill layer attending blockwise (MLA's
-    absorbed head dims, 24 + 8 and 24, take no flash kernel)."""
+    serves on the CPU, every prefill layer attending in the per-head form
+    (24 + 8 and 16, zero-padded to 64) through the flash wrapper's plain
+    version (16 rows a kv head: the decode route's), none blockwise; the
+    decode steps attend on the absorbed latent, outside the wrapper."""
     fak.reset_counts()
     layers.reset_blockwise_calls()
+    layers.reset_mla_per_head_calls()
     out = serve.run(["--device", "cpu", "--requests", "3", "--batch", "2",
                      "--prompt-len", "16", "--gen", "4"])
     assert [t.shape for t in out["tokens"]] == [(2, 4), (1, 4)]
     assert out["served_tokens"] == 3 * (16 + 4)
-    assert (fak.launches, fak.plain_calls) == (0, 0)
-    assert layers.blockwise_calls == 2 * 2
+    assert (fak.launches, fak.plain_calls) == (0, 2 * 2)
+    assert (layers.blockwise_calls, layers.mla_per_head_calls) == (0, 2 * 2)
 
 
 def test_serve_is_greedy_and_deterministic():

@@ -3,7 +3,7 @@ widths on the CPU: off, it records nothing and changes no output; on, an
 `attn_moe` prefill gives one `forward` root with its `attention`, `moe`
 (route, dispatch, experts, combine) and `head` spans, the dispatch's
 `kept` and `slots` equal an independent count of the routing, an MLA
-prefill's attention spans are its blockwise calls, the device fields stay
+prefill's attention spans are its per-head calls, the device fields stay
 None, the recorder keeps nothing the garbage collector tracks, and
 `ranges=True` puts the spans in a `torch.profiler` trace (without ranges
 the recorder steps aside there). One test, marked `cuda`, holds the
@@ -151,16 +151,20 @@ def test_kept_and_slots_against_the_routing(factor):
 
 
 def test_mla_attention_spans_are_its_blockwise_calls():
+    """An MLA prefill's attention spans, one a layer, are its per-head
+    calls (`mla_per_head_calls`), and none of them is blockwise: each
+    reads the kernel's plain route at SMOKE's padded head dim 64."""
     cfg, model = _model(MLA_ARCH)
     tokens = _tokens(cfg)
-    before = layers.blockwise_calls
+    before = (layers.blockwise_calls, layers.mla_per_head_calls)
     with obs.recording() as rec:
         forward(model, tokens, mode="prefill")
     attention = [s for s in rec.spans() if s.name == "attention"]
-    assert len(attention) == layers.blockwise_calls - before \
+    assert layers.blockwise_calls == before[0]
+    assert len(attention) == layers.mla_per_head_calls - before[1] \
         == cfg.num_layers
-    for s in attention:
-        assert s.attrs == {"route": "blockwise"}
+    for s in attention:                 # the per-head form at (64, 64)
+        assert s.attrs == {"route": "plain"}
 
 
 @pytest.mark.parametrize("d, sq, route", [(64, 32, "plain"),
