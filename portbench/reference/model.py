@@ -33,18 +33,34 @@ def rope(x: torch.Tensor, theta: float) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
+#: Query rows a tile of `causal_attention`; fixed, so that its numbers do
+#: not depend on the memory free.
+TILE = 1024
+
+
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      scale: float, prec: Precision) -> torch.Tensor:
     """q (H, S, dk), k (Hk, S, dk), v (Hk, S, dv), H a multiple of Hk
-    (query head h reads key head h // (H / Hk)) -> (H, S, dv)."""
+    (query head h reads key head h // (H / Hk)) -> (H, S, dv).
+
+    The query rows go in tiles of `TILE`, each against the keys up to its
+    last position, so that no (S, S) tensor is built: one tile's scores
+    are (H, TILE, S). The operands are rounded (`prec.op`) whole, before
+    tiling, so that a per-tensor scale is the whole tensor's."""
     g = q.shape[0] // k.shape[0]
+    q = prec.op(q)
     k = prec.op(k).repeat_interleave(g, dim=0)
     v = prec.op(v).repeat_interleave(g, dim=0)
-    s = torch.matmul(prec.op(q), k.transpose(1, 2)) * scale
-    n = s.shape[-1]
-    mask = torch.ones((n, n), dtype=torch.bool, device=s.device).tril()
-    s = s.masked_fill(~mask, float("-inf"))
-    return torch.matmul(torch.softmax(s, dim=-1), v)
+    n = q.shape[1]
+    out = q.new_empty(q.shape[0], n, v.shape[-1])
+    pos = torch.arange(n, device=q.device)
+    for a in range(0, n, TILE):
+        b = min(a + TILE, n)
+        s = torch.matmul(q[:, a:b], k[:, :b].transpose(1, 2)).mul_(scale)
+        s.masked_fill_(pos[None, :b] > pos[a:b, None], float("-inf"))
+        out[:, a:b] = torch.matmul(torch.softmax(s, dim=-1), v[:, :b])
+        del s
+    return out
 
 
 def mm(x: torch.Tensor, w: torch.Tensor, prec: Precision) -> torch.Tensor:

@@ -70,3 +70,38 @@ def test_fp8_reference_departs_from_fp32():
     e8 = ((FP8.op(x) - x).norm() / x.norm()).item()
     assert 0.01 < e8 < 0.08
     assert torch.equal(FP32.op(x), x)
+
+
+def _untiled(q, k, v, scale):
+    """The whole (H, S, S) formula: scores, a causal mask, softmax, v."""
+    g = q.shape[0] // k.shape[0]
+    k, v = k.repeat_interleave(g, dim=0), v.repeat_interleave(g, dim=0)
+    s = torch.matmul(q, k.transpose(1, 2)) * scale
+    n = s.shape[-1]
+    mask = torch.ones((n, n), dtype=torch.bool).tril()
+    return torch.matmul(torch.softmax(s.masked_fill(~mask, float("-inf")),
+                                      dim=-1), v)
+
+
+@pytest.mark.parametrize("fp8", [False, True])
+def test_attention_in_query_tiles_is_the_whole_formula(monkeypatch, fp8):
+    """Tiles of 64 query rows over S = 200 (the last tile partial), 8 query
+    heads over 2 key heads: the whole formula to fp32 rounding; in fp8 the
+    whole formula over q, k and v each rounded whole (one per-tensor
+    scale, not a tile's)."""
+    from portbench.reference import model
+    from portbench.reference.precision import FP8
+    monkeypatch.setattr(model, "TILE", 64)
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn(8, 200, 24, generator=gen)
+    k = torch.randn(2, 200, 24, generator=gen)
+    v = torch.randn(2, 200, 16, generator=gen)
+    # one query tile's rows an order larger, so that a tile's own fp8 scale
+    # would round the others differently
+    q[:, 64:128] *= 8.0
+    prec = FP8 if fp8 else FP32
+    got = model.causal_attention(q, k, v, 24 ** -0.5, prec)
+    want = _untiled(prec.op(q), prec.op(k), prec.op(v), 24 ** -0.5)
+    assert got.shape == (8, 200, 16)
+    err = ((got - want).norm() / want.norm()).item()
+    assert err < 1e-6, err

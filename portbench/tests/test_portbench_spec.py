@@ -106,3 +106,27 @@ def test_draw_scale_multiplies_the_named_leaves():
             assert torch.equal(got.layer(li)[name],
                                leaf * scale.get(name, 1.0)), (li, name)
 
+
+@pytest.mark.parametrize("cell,traffic,readers", [
+    ("phi3.5-moe-16l.prefill-32k", (1, 32768), {
+        "mfu.prefill", "attention_share.prefill",
+        "attention_roofline.prefill", "moe_share.prefill",
+        "device_idle.prefill", "moe_dispatch_share.prefill",
+        "moe_experts_roofline.prefill", "moe_slot_use.prefill",
+        "head_share.prefill"}),
+    ("minicpm3-4b.prefill-256", (32, 256), {
+        "mfu.prefill", "attention_share.prefill",
+        "attention_roofline.prefill", "device_idle.prefill",
+        "head_share.prefill"}),
+])
+def test_a_long_and_a_short_cell_find_their_pieces(cell, traffic, readers):
+    """The cells of one prompt of 32,768 tokens and of 32 prompts of 256:
+    their mix, their limits and their per-layer metrics are found by
+    name."""
+    sp = spec.load(cell)
+    assert (sp.traffic["batch"], sp.traffic["prompt_len"]) == traffic
+    assert sp.traffic["warmup_batches"] == 1 and sp.traffic["gen"] == 1
+    assert sp.limits["check_batches"] >= 1
+    assert {m["name"] for m in sp.per_layer} == readers
+    for m in sp.per_layer:
+        assert hasattr(spec.reader(m["name"]), "read")

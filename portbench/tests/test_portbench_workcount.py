@@ -120,3 +120,21 @@ def test_routing_load_by_hand():
     assert got["dropped_mean_pct"] == pytest.approx(100 / 16)
     assert got["load_max"] == pytest.approx(4 / (4 * 2 / 4))
 
+
+def test_long_and_short_cells_counted_by_hand():
+    """phi at one prompt of 32,768 tokens: 32,768 x 32,769 / 2 causal
+    pairs a head; minicpm3 at 32 prompts of 256: 256 x 257 / 2 a head and
+    prompt, an eighth of the 2k cell's pairs a token."""
+    pairs = 32768 * 32769 // 2
+    assert workcount.causal_pairs(32768, 32768) == pairs == 536_887_296
+    assert workcount.prefill_flops("attn_moe", PHI["config"], 16, 1,
+                                   32768) == (
+        16 * (2 * 199_294_976 * 32768 + 32 * pairs * 2 * (128 + 128))
+        + 2 * 4096 * 32064)
+    short = 256 * 257 // 2
+    assert workcount.causal_pairs(256, 256) == short == 32_896
+    assert workcount.prefill_flops("mla", MINICPM["config"], 62, 32,
+                                   256) == (
+        62 * (2 * 62_668_800 * 8192 + 32 * 40 * short * 2 * (96 + 64))
+        + 2 * 2560 * 73448 * 32)
+    assert 4 * (2048 * 2049 // 2) / (32 * short) == pytest.approx(8, rel=0.01)
