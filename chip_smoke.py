@@ -17,7 +17,10 @@ Drives the port's main path on one CUDA card and checks every byte:
      64-key tile's edges; minicpm3's MLA prefill in the per-head form
      (48 heads, G = 1, q and k zero past 96, v past 64, as
      `layers._mla_heads` pads them to 128), with the padded bound and the
-     published one (40 heads at 96 / 64); llama-3.2-vision's cross-attention, not
+     published one (40 heads at 96 / 64); Kimi K2's MLA prefill at the
+     benchmark cell's shape (B 8, 64 heads, S 4,096, q and k zero past
+     192 and v past 128, padded to 256), with the padded bound and the
+     published one (64 heads at 192 / 128); llama-3.2-vision's cross-attention, not
      causal, over 6,404 keys at Sq 2,048 and Sq 1, to `CROSS_TOLS`,
      which the plain version over an unmasked key tail must fail; fp32,
      on the tensor
@@ -144,6 +147,15 @@ Drives the port's main path on one CUDA card and checks every byte:
      against prefill in fp32 and, per sequence, on the bf16 weights at
      full-row capacity, a sequence exempt only where its routing
      switched at a near tie (`routing_switches`);
+ 14b. Kimi K2 Instruct as one rank of 32-way expert parallelism
+     (`kimi-k2-instruct-ep32`) at full width cut to 4 of its 60 `mla_moe`
+     layers: 5.05 B parameters (experts 0-11 of 384, the fp32 routers
+     and correction biases), 10.13 GB, 54 stripes, the same drill and
+     traffic; every prefill attention layer in the per-head form on the
+     flash kernel at head dim 256 (192 / 128 padded: 8 launches, 8
+     per-head calls), the sigmoid-routed dropless MoE beside it; decode
+     (absorbed, YaRN) against prefill in fp32, the bf16 difference
+     printed;
  15. rwkv6-7b at full width (32 `rwkv` layers, 64 wkv heads of 64; 7.52 B
      parameters, 15.04 GB with fp32 `decay_base` / `bonus` leaves) through
      the same drill: 80 stripes in windows of 8, restored degraded byte
@@ -844,6 +856,17 @@ SERVE_CELLS = {
         prompt=2048, gen=32, attention="kernel", counts=(4,),
         reduced="depth 4 of 32 layers: the 32-layer model is 83.7 GB of "
                 "weights, more than the card's 80 GB"),
+    # phase 14b: Kimi K2 Instruct as one EP32 rank at full width (d_model
+    # 7168, 64 MLA heads, qk 192 / v 128 padded to 256: the flash kernel
+    # at head dim 256; 12 of 384 experts of d_ff 2048 held, top 8 by
+    # sigmoid score plus bias, dropless; a shared expert), 10,130,968,576
+    # bytes (fp32 routers and biases) in 54 stripes; the llama cell's
+    # traffic
+    "kimi-k2-instruct-ep32": dict(
+        params=5_054_472_704, stripes=54, window=8, batch=4, requests=8,
+        prompt=2048, gen=32, attention="kernel", counts=(4,),
+        reduced="depth 4 of 60 layers: the 60-layer rank is 81.5 GB of "
+                "weights, more than the card's 80 GB"),
     # phase 15: rwkv6-7b, nothing cut: 32 `rwkv` layers of 64 wkv heads of
     # 64 (d 4096, d_ff 14336, vocab 65536), 15,035,801,600 bytes (fp32
     # `decay_base` and `bonus`) in 80 stripes; no attention: the chunked
@@ -883,13 +906,13 @@ def routing_probe():
     from repro_torch.models import layers
     inner, calls = layers.moe_ffn, []
 
-    def probe(params, x, cfg, mesh=None):
+    def probe(params, x, cfg, mesh=None, **kw):
         z = x.float() @ params.router.float()
         _, idx = layers.top_k(torch.softmax(z, dim=-1),
                               cfg.moe.num_experts_per_tok)
         calls.append(dict(z=z, sets=idx.sort(dim=-1).values, x=x,
                           router=params.router))
-        return inner(params, x, cfg, mesh)
+        return inner(params, x, cfg, mesh, **kw)
 
     layers.moe_ffn = probe
     try:
@@ -1071,6 +1094,7 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
     from repro_torch.models import (Segment, forward, init_params, layers,
                                     pad_cache_to, params_from_jax,
                                     params_to_tree)
+    from repro_torch.models.config import RoutedMoEConfig
 
     cell = SERVE_CELLS[arch]
     dev = torch.device("cuda")
@@ -1168,7 +1192,7 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
     # MLA layers attend in the per-head form at prefill, once a layer a
     # batch, and on the absorbed latent cache in decode (not counted)
     mla_layers = sum(seg.count for seg in cfg.segments
-                     for kind in seg.blocks if kind == "mla")
+                     for kind in seg.blocks if kind in ("mla", "mla_moe"))
     check(flash["mla_per_head_calls"] == nbatches * mla_layers,
           f"{flash['mla_per_head_calls']} MLA per-head calls != {nbatches} "
           f"batches x {mla_layers} MLA layers")
@@ -1214,6 +1238,21 @@ def serve_path(seed: int, arch: str, tag: str = "") -> dict:
     moe = {}
     if cfg.moe is None:
         rel, scale, finite, step, cache, _ = decode_vs_prefill(model)
+    elif isinstance(cfg.moe, RoutedMoEConfig):
+        # The dropless route computes every choice on both paths, so only
+        # routing's discontinuity can part them: in bf16 the two paths'
+        # roundings may switch a near tie of score plus bias. Checked in
+        # fp32, as the tests compare MoE models; the served difference
+        # and each sequence's are printed
+        rel_served, _, _, step, cache, per_seq = decode_vs_prefill(model)
+        exact = copy.deepcopy(model).float()
+        rel, scale, finite, _, _, _ = decode_vs_prefill(exact)
+        del exact
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe = dict(checked="fp32, dropless",
+                   bf16_served=f"{rel_served:.5f}",
+                   bf16_per_seq=json.dumps([round(r, 5) for r in per_seq]))
     else:
         # Decode equals prefill only where both route every token alike.
         # (a) A prefill of P tokens drops the tokens over an expert's
@@ -3111,6 +3150,10 @@ def main() -> None:
     flash_case(1, 16, 1, 300, 300, 256, bf16, True, window=40, reps=10)
     flash_case(1, 16, 1, 1024, 3968, 256, bf16, False, reps=10)
     flash_case(2, 16, 1, 1, 1, 256, bf16, True, reps=10)
+    # Kimi K2's MLA prefill in the per-head form at the benchmark cell's
+    # shape: 64 heads, q and k 128 + 64 and v 128 wide, zero-padded to 256
+    flash_kimi = flash_case(8, 64, 64, 4096, 4096, 256, bf16, True,
+                            published=(64, 192, 128))
     # llama-3.2-vision's cross-attention: not causal, the ragged vision
     # length 6404 = 50 x 128 + 4, at prefill (Sq 2048) and decode (Sq 1)
     # (Sq 1 is a decode: the split-KV decode kernel)
@@ -3273,6 +3316,16 @@ def main() -> None:
     phase("moe phase", seconds=f"{time.perf_counter() - t0:.2f}",
           vmrss_GB=f"{vmrss_gb():.3f}")
 
+    # 14b. Kimi K2 as one EP32 rank, 4 of 60 layers: MLA at d = 256 beside
+    # the dropless routed MoE ------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    kimi_path = serve_path(2505, "kimi-k2-instruct-ep32", tag="kimi ")
+    phase("kimi phase", seconds=f"{time.perf_counter() - t0:.2f}",
+          vmrss_GB=f"{vmrss_gb():.3f}")
+
     # 15-17. the last three block families at full width: rwkv6-7b (no
     # attention), llama-3.2-vision-11b (cross-attention through the flash
     # kernel) and hubert-xlarge (embedding-free, non-causal, encoded) ---
@@ -3312,6 +3365,7 @@ def main() -> None:
                      "serve_recurrentgemma": flash_rg_path["fp32_launches"],
                      "serve_minicpm3": mla_path["fp32_launches"],
                      "serve_phi35moe": moe_path["fp32_launches"],
+                     "serve_kimi": kimi_path["fp32_launches"],
                      "serve_rwkv6": rwkv_path["fp32_launches"],
                      "serve_vision": vision_path["fp32_launches"],
                      "encode_hubert": hubert_path["fp32_launches"],
@@ -3323,6 +3377,7 @@ def main() -> None:
                       "train": train["flash_decode"],
                       "serve_minicpm3": mla_path["decode_launches"],
                       "serve_phi35moe": moe_path["decode_launches"],
+                      "serve_kimi": kimi_path["decode_launches"],
                       "serve_rwkv6": rwkv_path["decode_launches"],
                       "serve_vision": vision_path["decode_launches"],
                       "encode_hubert": hubert_path["decode_launches"],
@@ -3338,6 +3393,7 @@ def main() -> None:
                                "train": train["gf_bitmatmul"],
                                "serve_minicpm3": mla_path["gf_bitmatmul"],
                                "serve_phi35moe": moe_path["gf_bitmatmul"],
+                               "serve_kimi": kimi_path["gf_bitmatmul"],
                                "serve_rwkv6": rwkv_path["gf_bitmatmul"],
                                "serve_vision": vision_path["gf_bitmatmul"],
                                "encode_hubert": hubert_path["gf_bitmatmul"],
@@ -3360,6 +3416,7 @@ def main() -> None:
                                "train": train["xor_reduce"],
                                "serve_minicpm3": mla_path["xor_reduce"],
                                "serve_phi35moe": moe_path["xor_reduce"],
+                               "serve_kimi": kimi_path["xor_reduce"],
                                "serve_rwkv6": rwkv_path["xor_reduce"],
                                "serve_vision": vision_path["xor_reduce"],
                                "encode_hubert": hubert_path["xor_reduce"],
@@ -3399,8 +3456,15 @@ def main() -> None:
              replaces="src/repro/kernels/flash_attention.py:116",
              launches=prefill(flash_rg_path),
              launches_by_path={"serve_recurrentgemma": prefill(
-                 flash_rg_path)},
-             **flash_rg),
+                 flash_rg_path), "serve_kimi": prefill(kimi_path)},
+             **flash_rg,
+             # Kimi K2's MLA prefill in the per-head form, padded to 256:
+             # phase 3's case at the benchmark cell's shape, with phase
+             # 14b's launches and per-head calls (its batches: 4 x 2,048)
+             mla_shapes={"B=8 Hq=64 Hkv=64 S=4096 d=256 (qk 192, v 128)":
+                         dict(flash_kimi, launches=prefill(kimi_path),
+                              per_head_calls=kimi_path[
+                                  "mla_per_head_calls"])}),
         # bf16 calls of at most 16 rows a kv head: every cross-attention
         # decode step of phase 16. The row's numbers are the vision decode
         # shape's; `shapes` has phase 3's decode cases, `past_cap` the

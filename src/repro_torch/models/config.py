@@ -2,10 +2,14 @@
 
 Plain data, carried over unchanged so that a configuration means the same
 model in both packages. A model is a sequence of *segments*; each segment
-is `count` copies of one superblock of block kinds. The port runs the
-`attn`, `local_attn`, `mla`, `attn_moe` and `rg` kinds so far; the other
-kinds are listed so that every reference configuration can be described
-(ROADMAP A9 brings their layers).
+is `count` copies of one superblock of block kinds. The port runs every
+kind listed in `BLOCK_KINDS`; `mla_moe` (MLA beside a MoE FFN, as in
+DeepSeek-V3 and Kimi K2) is the port's own and has no reference kind.
+Its configurations use two subclasses that only the port has,
+`RoutedMoEConfig` (sigmoid scores, a correction bias, dropless routing
+over a held share of the experts) and `YarnMLAConfig` (YaRN on MLA's
+rotary dims); `MoEConfig`, `MLAConfig` and `ModelConfig` keep the
+reference's fields.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ BLOCK_KINDS = (
     "local_attn",  # windowed self-attention + MLP
     "rwkv",        # RWKV6 time-mix + channel-mix
     "cross_attn",  # cross-attention (vision) + MLP
+    "mla_moe",     # multi-head latent attention + MoE FFN (port only)
 )
 
 
@@ -33,6 +38,19 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class YarnMLAConfig(MLAConfig):
+    """MLA with YaRN scaling of its rotary dims (DeepSeek-V3, Kimi K2;
+    port only): `layers.yarn_freqs` gives the rotary table and its cos /
+    sin factor, `layers.mla_softmax_scale` the attention's scale."""
+    rope_factor: float = 1.0                # s
+    original_max_position: int = 4096       # L0
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
 class MoEConfig:
     num_experts: int = 16
     num_experts_per_tok: int = 2
@@ -41,6 +59,30 @@ class MoEConfig:
     num_shared_experts: int = 0
     d_ff_shared: int = 0
     router_aux_weight: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class RoutedMoEConfig(MoEConfig):
+    """A dropless MoE routed as DeepSeek-V3 and Kimi K2 route (port only):
+    each token's fp32 sigmoid scores over all `num_experts`, its top
+    `num_experts_per_tok` chosen on the scores plus a per-expert fp32
+    correction bias (which never enters a weight), the chosen scores
+    renormalised and times `routed_scale`. No capacity: every (token,
+    expert) choice is computed (`capacity_factor` unused). The layer
+    holds experts `first_held` .. `first_held + held - 1` (all of them
+    when `held` is 0) and computes only their part of the output, as one
+    rank of expert parallelism does without the exchange."""
+    routed_scale: float = 1.0
+    held: int = 0
+    first_held: int = 0
+
+    def __post_init__(self):
+        assert 0 <= self.first_held and \
+            self.first_held + self.held_experts <= self.num_experts
+
+    @property
+    def held_experts(self) -> int:
+        return self.held or self.num_experts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,7 +171,8 @@ class ModelConfig:
     def subquadratic(self) -> bool:
         """True if no full-attention block (long_500k runnable)."""
         kinds = {b for s in self.segments for b in s.blocks}
-        return not (kinds & {"attn", "attn_moe", "mla", "cross_attn"})
+        return not (kinds & {"attn", "attn_moe", "mla", "mla_moe",
+                             "cross_attn"})
 
     def param_count(self) -> int:
         """Analytic parameter count (used in roofline MODEL_FLOPS)."""
@@ -152,14 +195,20 @@ class ModelConfig:
                         per_block += m.num_shared_experts * 3 * d * m.d_ff_shared
                     else:
                         per_block += 3 * d * self.d_ff                    # swiglu
-                elif b == "mla":
+                elif b in ("mla", "mla_moe"):
                     c = self.mla
                     qk_head = c.qk_nope_head_dim + c.qk_rope_head_dim
                     per_block += d * c.q_lora_rank + c.q_lora_rank * self.num_heads * qk_head
                     per_block += d * (c.kv_lora_rank + c.qk_rope_head_dim)
                     per_block += c.kv_lora_rank * self.num_heads * (c.qk_nope_head_dim + c.v_head_dim)
                     per_block += self.num_heads * c.v_head_dim * d
-                    per_block += 3 * d * self.d_ff
+                    if b == "mla":
+                        per_block += 3 * d * self.d_ff
+                    else:       # the router, its bias, the held experts
+                        m = self.moe
+                        per_block += d * m.num_experts + m.num_experts
+                        per_block += m.held_experts * 3 * d * m.d_ff_expert
+                        per_block += m.num_shared_experts * 3 * d * m.d_ff_shared
                 elif b == "rg":
                     dr = _rg_width(d)
                     per_block += 2 * d * dr + dr * d        # in/out proj
@@ -182,9 +231,11 @@ class ModelConfig:
         m = self.moe
         dense_like = self.param_count()
         per_expert = 3 * self.d_model * m.d_ff_expert
-        moe_layers = sum(s.count * sum(1 for b in s.blocks if b == "attn_moe")
+        moe_layers = sum(s.count * sum(1 for b in s.blocks
+                                       if b in ("attn_moe", "mla_moe"))
                          for s in self.segments)
-        inactive = (m.num_experts - m.num_experts_per_tok) * per_expert * moe_layers
+        held = getattr(m, "held_experts", m.num_experts)
+        inactive = max(held - m.num_experts_per_tok, 0) * per_expert * moe_layers
         return dense_like - inactive
 
 

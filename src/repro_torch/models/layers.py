@@ -6,7 +6,10 @@ cache, for `local_attn`), SwiGLU; the `mla` kind's multi-head latent
 attention (per-head form over the call's own tokens, absorbed form in
 decode, latent cache); the `attn_moe` kind's MoE FFN
 (token-choice top-k routing with per-row expert capacity, a Switch
-load-balance loss); the `rg` kind's Griffin recurrent block (RG-LRU); the
+load-balance loss); the `mla_moe` kind's MLA (with YaRN for a
+`YarnMLAConfig`) and its dropless MoE for a `RoutedMoEConfig` (sigmoid
+scores, a correction bias, the held experts' share as grouped GEMMs, a
+shared expert); the `rg` kind's Griffin recurrent block (RG-LRU); the
 `rwkv` kind's RWKV6 time-mix (chunked WKV scan, exact one-step decode) and
 channel-mix; and the `cross_attn` kind's gated cross-attention over stub
 vision embeddings.
@@ -46,7 +49,8 @@ from repro_torch import obs
 from repro_torch.kernels import flash_attention as fa
 
 from . import partitioning as PT
-from .config import ModelConfig, MoEConfig, _rg_width
+from .config import (MLAConfig, ModelConfig, MoEConfig, RoutedMoEConfig,
+                     YarnMLAConfig, _rg_width)
 
 
 # ---------------------------------------------------------------------------
@@ -71,13 +75,70 @@ def _rope_freqs(head_dim: int, theta: float,
     return torch.from_numpy(freqs.astype(np.float32)).to(device)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (..., S, hd); positions: (S,). Half-split rotation in fp32."""
+def yarn_mscale(factor: float, m: float) -> float:
+    """YaRN's g(s, m) = 0.1 m ln s + 1 (1 for s <= 1)."""
+    return 0.1 * m * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+@functools.lru_cache(maxsize=None)
+def yarn_freqs(dim: int, theta: float, c: YarnMLAConfig,
+               device: torch.device) -> tuple[torch.Tensor, float]:
+    """YaRN's rotary table over `dim` rotary dims, as DeepSeek-V3's
+    `DeepseekV3YarnRotaryEmbedding` computes it (fp64, then fp32), with
+    s = `rope_factor` and L0 = `original_max_position`:
+
+    - f_i = theta^(-2i / dim), i = 0 .. dim / 2 - 1;
+    - c(beta) = dim ln(L0 / (2 pi beta)) / (2 ln theta); low =
+      floor(c(beta_fast)), high = ceil(c(beta_slow)), each clamped to
+      [0, dim - 1]; where they are equal, high + 0.001;
+    - ramp_i = clamp((i - low) / (high - low), 0, 1);
+    - inv_freq_i = f_i / s ramp_i + f_i (1 - ramp_i);
+    - cos and sin times g(s, mscale) / g(s, mscale_all_dim)
+      (`yarn_mscale`).
+
+    Kimi K2 (dim 64, theta 50,000, s 32, L0 4,096, both betas 1): low 19
+    and high 20, so pairs 0-19 keep f_i and pairs 20-31 take f_i / 32;
+    the factor is 1. -> (inv_freq (dim / 2,) on `device`, the factor).
+    Cached as `_rope_freqs` is; callers must not modify it."""
+    s, base = c.rope_factor, float(theta)
+
+    def corr(beta: float) -> float:
+        return dim * math.log(c.original_max_position / (2 * math.pi * beta)) \
+            / (2 * math.log(base))
+    low = max(math.floor(corr(c.beta_fast)), 0)
+    high = min(math.ceil(corr(c.beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    f = 1.0 / (base ** (np.arange(0, dim, 2) / dim))
+    ramp = np.clip((np.arange(dim // 2) - low) / (high - low), 0.0, 1.0)
+    inv = f / s * ramp + f * (1.0 - ramp)
+    factor = yarn_mscale(s, c.mscale) / yarn_mscale(s, c.mscale_all_dim)
+    return torch.from_numpy(inv.astype(np.float32)).to(device), factor
+
+
+def mla_softmax_scale(c: MLAConfig) -> float:
+    """MLA attention's softmax scale: (qk_nope + qk_rope)^-1/2, times
+    g(s, mscale_all_dim)^2 under YaRN where mscale_all_dim is set
+    (DeepSeek-V3's `softmax_scale`; Kimi K2: 192^-1/2 x 1.34657^2)."""
+    scale = (c.qk_nope_head_dim + c.qk_rope_head_dim) ** -0.5
+    if isinstance(c, YarnMLAConfig) and c.mscale_all_dim:
+        scale *= yarn_mscale(c.rope_factor, c.mscale_all_dim) ** 2
+    return scale
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               yarn: YarnMLAConfig | None = None) -> torch.Tensor:
+    """x: (..., S, hd); positions: (S,). Half-split rotation in fp32; with
+    `yarn`, at YaRN's frequencies and cos / sin factor (`yarn_freqs`)."""
     hd = x.shape[-1]
-    freqs = _rope_freqs(hd, theta, x.device)
+    if yarn is None:
+        freqs, factor = _rope_freqs(hd, theta, x.device), 1.0
+    else:
+        freqs, factor = yarn_freqs(hd, theta, yarn, x.device)
     angles = positions.float()[..., None] * freqs            # (S, hd/2)
     cos, sin = torch.cos(angles), torch.sin(angles)
+    if factor != 1.0:
+        cos, sin = cos * factor, sin * factor
     x1, x2 = x.float().chunk(2, dim=-1)
     rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return rot.to(x.dtype)
@@ -798,15 +859,19 @@ def mla_block(params: MLA, x: torch.Tensor, cfg: ModelConfig, mode: str,
     (B, H, 1, kv_lora + rope) against one key head concat(ckv, kr) and one
     value head ckv of the latent cache, whose `ckv` and `kr` (B, S_max, *)
     get the new token at `pos` in place (the same tensors come back as the
-    new cache), through `decode_attention`. q is scaled in bf16 by
-    qk_head^-0.5 then sqrt(attention's head dim), two roundings as in the
-    reference, so that attention's own head-dim^-0.5 leaves the per-head
-    scale."""
+    new cache), through `decode_attention`. q is scaled in bf16 by the
+    softmax scale (`mla_softmax_scale`: qk_head^-0.5, and YaRN's factor
+    for a `YarnMLAConfig`) then sqrt(attention's head dim), two roundings
+    as in the reference, so that attention's own head-dim^-0.5 leaves the
+    per-head scale. A `YarnMLAConfig` rotates at YaRN's frequencies
+    (`yarn_freqs`) in both forms."""
     global mla_per_head_calls
     c = cfg.mla
     B, S, _ = x.shape
     H = cfg.num_heads_padded
     qk = c.qk_nope_head_dim + c.qk_rope_head_dim
+    yarn = c if isinstance(c, YarnMLAConfig) else None
+    scale = mla_softmax_scale(c)
 
     # the latents whole on every device (their gradients too: `cst`)
     ql = rms_norm(cst(x @ params.w_dq, mesh, "B", None, None),
@@ -822,29 +887,30 @@ def mla_block(params: MLA, x: torch.Tensor, cfg: ModelConfig, mode: str,
         # absorb W_uk: q_lat (B, H, S, kv_lora), bf16 as the reference's
         q_lat = torch.einsum("bshn,hnr->bhsr", q_nope, params.w_uk)
         where = torch.arange(pos, pos + 1, device=x.device)
-        q_rope = apply_rope(q_rope, where, cfg.rope_theta)
-        k_rope = apply_rope(k_rope, where, cfg.rope_theta)[:, 0]
+        q_rope = apply_rope(q_rope, where, cfg.rope_theta, yarn)
+        k_rope = apply_rope(k_rope, where, cfg.rope_theta, yarn)[:, 0]
         ckv_cache, kr_cache = cache["ckv"], cache["kr"]
         qf = torch.cat([q_lat, q_rope], dim=-1)
         if mesh is not None:
             out = _mla_decode_on_shards(
-                mesh, qf * qk ** -0.5 * qf.shape[-1] ** 0.5, ckv, k_rope,
+                mesh, qf * scale * qf.shape[-1] ** 0.5, ckv, k_rope,
                 ckv_cache, kr_cache, pos)
         else:
             ckv_cache[:, pos:pos + 1] = ckv.to(ckv_cache.dtype)
             kr_cache[:, pos:pos + 1] = k_rope.to(kr_cache.dtype)
             kf = torch.cat([ckv_cache, kr_cache], dim=-1)[:, None]
-            out = decode_attention(qf * qk ** -0.5 * qf.shape[-1] ** 0.5, kf,
+            out = decode_attention(qf * scale * qf.shape[-1] ** 0.5, kf,
                                    ckv_cache[:, None], pos)
         new_cache = {"ckv": ckv_cache, "kr": kr_cache}
         o = torch.einsum("bhsr,hrv->bshv", out, params.w_uv)
     else:
         positions = torch.arange(S, device=x.device)
-        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-        k_rope = apply_rope(k_rope, positions, cfg.rope_theta)[:, 0]
+        q_rope = apply_rope(q_rope, positions, cfg.rope_theta, yarn)
+        k_rope = apply_rope(k_rope, positions, cfg.rope_theta, yarn)[:, 0]
         k_nope = torch.einsum("bsr,hnr->bshn", ckv, params.w_uk)
         v = torch.einsum("bsr,hrv->bshv", ckv, params.w_uv)
-        qh, kh, vh = _mla_heads_on(mesh, q_nope, q_rope, k_nope, v, k_rope)
+        qh, kh, vh = _mla_heads_on(mesh, q_nope, q_rope, k_nope, v, k_rope,
+                                   scale)
         with _BLOCKWISE_LOCK:
             mla_per_head_calls += 1
         out = flash_attention(qh, kh, vh, causal=cfg.causal, mesh=mesh)
@@ -868,10 +934,12 @@ def mla_head_dim(qk: int, v: int) -> int:
 
 
 def _mla_heads(q_nope: torch.Tensor, q_rope: torch.Tensor,
-               k_nope: torch.Tensor, v: torch.Tensor, k_rope: torch.Tensor
+               k_nope: torch.Tensor, v: torch.Tensor, k_rope: torch.Tensor,
+               scale: float
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """MLA's per-head attention inputs, each (B, H, S, D) with D
-    `mla_head_dim`: q = [q_nope | q_rope] scaled (see `mla_block`),
+    `mla_head_dim`: q = [q_nope | q_rope] scaled by `scale` and
+    sqrt(D) (see `mla_block`),
     k = [k_nope | k_rope] (the rotary key shared by every head) and v,
     each written once into its buffer and zero past its width (zero
     columns add nothing to a dot product, so the attention is exact).
@@ -888,16 +956,16 @@ def _mla_heads(q_nope: torch.Tensor, q_rope: torch.Tensor,
     vh[..., :dv] = v.transpose(1, 2)
     for t, w in ((qh, qk), (kh, qk), (vh, dv)):
         t[..., w:] = 0
-    return qh.mul_(qk ** -0.5).mul_(D ** 0.5), kh, vh
+    return qh.mul_(scale).mul_(D ** 0.5), kh, vh
 
 
-def _mla_heads_on(mesh, q_nope, q_rope, k_nope, v, k_rope):
+def _mla_heads_on(mesh, q_nope, q_rope, k_nope, v, k_rope, scale: float):
     """`_mla_heads`, on a mesh on each device's shards, its outputs placed
     as `_shard_attn_heads` places attention's: heads over `model` where
     their count divides it; the rotary key whole, its gradient then a
     partial sum over `model`."""
     if mesh is None:
-        return _mla_heads(q_nope, q_rope, k_nope, v, k_rope)
+        return _mla_heads(q_nope, q_rope, k_nope, v, k_rope, scale)
     B, S, H, _ = k_nope.shape
     split = H % PT.axis_sizes(mesh).get("model", 1) == 0
     by_s = ("B", None, "model" if split else None, None)
@@ -908,8 +976,9 @@ def _mla_heads_on(mesh, q_nope, q_rope, k_nope, v, k_rope):
     out_pl = _cst_placements((B, H, S, 1), mesh, by_h)
     grad_pl = in_pl[:4] + ((_partial_on(in_pl[4], mesh, ("model",))
                             if split else in_pl[4]),)
-    return _on_shards(_mla_heads, mesh, (q_nope, q_rope, k_nope, v, k_rope),
-                      in_pl, (out_pl,) * 3, grad_pl)
+    return _on_shards(functools.partial(_mla_heads, scale=scale), mesh,
+                      (q_nope, q_rope, k_nope, v, k_rope), in_pl,
+                      (out_pl,) * 3, grad_pl)
 
 
 def _mla_decode_on_shards(mesh, qf, ckv, kr, ckv_cache, kr_cache,
@@ -962,13 +1031,18 @@ class MoE(nn.Module):
     """The MoE FFN's weights: the fp32 `router` (d, E), the stacked bf16
     experts `w_gate`, `w_up` (E, d, f) and `w_down` (E, f, d), and, with
     `num_shared_experts`, a `shared` SwiGLU of width d_ff_shared x that
-    count. Built with a generator it is the reference's `init_moe`."""
+    count. Built with a generator it is the reference's `init_moe`. A
+    `RoutedMoEConfig` holds only its `held_experts` experts (the router
+    keeps all E) and the fp32 `correction_bias` (E,), drawn last as
+    0.01 N(0, 1)."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None,
                  device: torch.device | str = "cuda"):
         super().__init__()
         m, d = cfg.moe, cfg.d_model
         E, f = m.num_experts, m.d_ff_expert
+        routed = isinstance(m, RoutedMoEConfig)
+        held = m.held_experts if routed else E
         dev = gen.device if gen is not None else torch.device(device)
 
         def weight(*shape, scale):
@@ -979,16 +1053,22 @@ class MoE(nn.Module):
                   if gen is not None else
                   torch.empty((d, E), dtype=torch.float32, device=dev))
         self.router = nn.Parameter(router, requires_grad=False)
-        self.w_gate = weight(E, d, f, scale=d ** -0.5)
-        self.w_up = weight(E, d, f, scale=d ** -0.5)
-        self.w_down = weight(E, f, d, scale=f ** -0.5)
+        self.w_gate = weight(held, d, f, scale=d ** -0.5)
+        self.w_up = weight(held, d, f, scale=d ** -0.5)
+        self.w_down = weight(held, f, d, scale=f ** -0.5)
         if m.num_shared_experts:
             self.shared = SwiGLU(d, m.d_ff_shared * m.num_shared_experts,
                                  gen, dev)
+        if routed:
+            bias = (torch.randn((E,), generator=gen, device=dev) * 0.01
+                    if gen is not None else
+                    torch.empty((E,), dtype=torch.float32, device=dev))
+            self.correction_bias = nn.Parameter(bias, requires_grad=False)
 
 
-def moe_ffn(params: MoE, x: torch.Tensor, cfg: ModelConfig, mesh=None
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(params: MoE, x: torch.Tensor, cfg: ModelConfig, mesh=None,
+            train: bool = True
+            ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """x: (B, S, D) -> (out (B, S, D), aux): the reference's `moe_ffn`.
 
     Each token picks its top K experts by fp32 router probability, their
@@ -1008,9 +1088,19 @@ def moe_ffn(params: MoE, x: torch.Tensor, cfg: ModelConfig, mesh=None
     its batch shard (`_moe_experts`); the partial outputs are summed over
     `model` by `cst`, where the reference's `cst` pins the combine.
 
+    A `RoutedMoEConfig` routes and computes otherwise (`_moe_dropless`),
+    has no mesh path, and computes its aux only with `train` (None
+    otherwise: prefill and decode discard it).
+
     Recorded as the span `moe`, with the children `moe.route` and those of
     `_moe_experts` (`repro_torch.obs`)."""
     with obs.span("moe"):
+        if isinstance(cfg.moe, RoutedMoEConfig):
+            if mesh is not None:
+                raise NotImplementedError(
+                    "the dropless routed MoE (RoutedMoEConfig, the mla_moe "
+                    "kind) has no device-mesh path: it runs on one device")
+            return _moe_dropless(params, x, cfg.moe, train)
         return _moe_ffn(params, x, cfg, mesh)
 
 
@@ -1125,6 +1215,149 @@ def _moe_experts(x: torch.Tensor, chosen: torch.Tensor, topi: torch.Tensor,
         for j in range(K):
             out = out + torch.where(live[:, :, j], picked[:, :, j], 0.0)
         return out
+
+
+def _moe_dropless(params: MoE, x: torch.Tensor, m: RoutedMoEConfig,
+                  train: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The routed MoE of a `RoutedMoEConfig` (DeepSeek-V3, Kimi K2):
+    x (B, S, D) -> (out, aux).
+
+    Route (span `moe.route`, `_route_scores`): fp32 sigmoid scores s over
+    all E experts, each token's K experts the top K of s + b (b the
+    correction bias; ties in index order, `top_k`), their weights s_e /
+    sum of the chosen s x `routed_scale`; b enters no weight. The
+    route ends by counting the rows of each held expert and starting their
+    copy to the host (`_to_host`). The shared expert (span `moe.shared`)
+    is launched next, so that the device runs it while the host waits for
+    the counts, the one wait for the device a layer. Then the held
+    experts' part, dropless (`_held_experts`); the shared expert's output
+    is added once, after the routed sum. aux, with `train` (else None), is
+    the Switch load-balance loss E sum_e f_e p_e, f_e the share of
+    choices that took expert e and p_e its mean score renormalised over
+    the experts."""
+    E, E_l = m.num_experts, params.w_gate.shape[0]
+    with obs.span("moe.route"):
+        scores, weights, topi = _route_scores(
+            x, params.router, params.correction_bias, m)
+        local = (topi - m.first_held).reshape(-1)
+        key = torch.where((local >= 0) & (local < E_l), local, E_l)
+        counts = torch.bincount(key, minlength=E_l + 1)[:E_l]
+        sizes = _to_host(counts)
+    shared = None
+    if m.num_shared_experts:
+        with obs.span("moe.shared"):
+            shared = params.shared(x)
+    out = _held_experts(x, weights, key, counts, sizes(), params.w_gate,
+                        params.w_up, params.w_down)
+    if shared is not None:
+        out = out + shared
+    if not train:
+        return out, None
+    f = torch.bincount(topi.reshape(-1), minlength=E).float() / topi.numel()
+    p = (scores / scores.sum(-1, keepdim=True)).mean(dim=(0, 1))
+    return out, E * torch.sum(f * p)
+
+
+def _to_host(t: torch.Tensor):
+    """-> a function that returns `t.tolist()`. On a CUDA device the copy
+    starts now (into pinned memory, behind an event) and the function
+    waits only for it, not for work launched after this call."""
+    if not t.is_cuda:
+        return t.tolist
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def wait() -> list:
+        done.synchronize()
+        return host.tolist()
+    return wait
+
+
+def _route_scores(x: torch.Tensor, router: torch.Tensor, bias: torch.Tensor,
+                  m: RoutedMoEConfig
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """-> (scores (B, S, E) fp32, weights (B, S, K) fp32, topi (B, S, K)):
+    see `_moe_dropless`."""
+    scores = torch.sigmoid(x.float() @ router.float())
+    _, topi = top_k(scores + bias.float(), m.num_experts_per_tok)
+    w = scores.gather(-1, topi)
+    return scores, w / w.sum(-1, keepdim=True) * m.routed_scale, topi
+
+
+def _held_experts(x: torch.Tensor, weights: torch.Tensor, key: torch.Tensor,
+                  counts: torch.Tensor, sizes: list, w_gate: torch.Tensor,
+                  w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """The part of the routed output that the E_l held experts give
+    (E_l = w_gate.shape[0]), for every (token, choice) routed to them: no
+    capacity, nothing dropped. `key` (B x S x K,): each choice's held
+    expert, E_l where it is not held; `counts` the rows of each held
+    expert, `sizes` the same on the host.
+
+    Dispatch (span `moe.dispatch`, attrs `held` E_l, `rows` the held
+    (token, choice) pairs, `rows_max` those of the most loaded held
+    expert): the choices stably sorted by held expert, so that each
+    expert's rows stay in position order, and gathered, each buffer as
+    long as its rows. Experts (span `moe.experts`, `_expert_ffn`): the
+    three products per expert as grouped GEMMs. Combine (span
+    `moe.combine`): each row times its weight (bf16), then added into its
+    token's output expert by expert, in expert order, one bf16 add each
+    (within an expert no token comes twice): deterministic, no atomics,
+    as `_moe_experts` combines."""
+    B, S, D = x.shape
+    K, E_l = weights.shape[-1], w_gate.shape[0]
+    with obs.span("moe.dispatch", held=E_l) as span:
+        rows = sum(sizes)
+        if span is not None:
+            span.set(rows=rows, rows_max=max(sizes))
+        if not rows:                    # (a decode step, often)
+            return torch.zeros_like(x)
+        pair = torch.sort(key, stable=True).indices[:rows]
+        token = pair // K
+        xs = x.reshape(B * S, D)[token]
+    with obs.span("moe.experts"):
+        ys = _expert_ffn(xs, w_gate, w_up, w_down, counts, sizes)
+    with obs.span("moe.combine"):
+        ys = ys * weights.reshape(-1)[pair, None].to(ys.dtype)
+        out = torch.zeros((B * S, D), dtype=ys.dtype, device=x.device)
+        a = 0
+        for n in sizes:
+            if n:
+                t = token[a:a + n]
+                out.index_copy_(0, t, out.index_select(0, t) + ys[a:a + n])
+            a += n
+        return out.reshape(B, S, D)
+
+
+def _expert_ffn(xs: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                w_down: torch.Tensor, counts: torch.Tensor, sizes: list
+                ) -> torch.Tensor:
+    """Each expert's SwiGLU over its rows of xs (rows grouped by expert,
+    `sizes` of them each, `counts` the same on the device). On a CUDA
+    device in bf16, three grouped GEMMs (`torch._grouped_mm`, the groups'
+    ends on the device); elsewhere (the CPU, or fp32 weights) the plain
+    version, one expert at a time."""
+    if xs.is_cuda and xs.dtype == torch.bfloat16:
+        offs = counts.cumsum(0).to(torch.int32)
+        gate = torch._grouped_mm(xs, w_gate, offs=offs)
+        up = torch._grouped_mm(xs, w_up, offs=offs)
+        act = F.silu(gate.float()).to(xs.dtype) * up
+        return torch._grouped_mm(act, w_down, offs=offs)
+    return _expert_ffn_plain(xs, w_gate, w_up, w_down, sizes)
+
+
+def _expert_ffn_plain(xs: torch.Tensor, w_gate: torch.Tensor,
+                      w_up: torch.Tensor, w_down: torch.Tensor, sizes: list
+                      ) -> torch.Tensor:
+    """`_expert_ffn`'s plain version: one expert's rows at a time."""
+    out, a = [], 0
+    for e, n in enumerate(sizes):
+        xe = xs[a:a + n]
+        act = F.silu((xe @ w_gate[e]).float()).to(xs.dtype) * (xe @ w_up[e])
+        out.append(act @ w_down[e])
+        a += n
+    return torch.cat(out)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Model assembly of the port (port of `repro.models.model`), for every
 block kind: `attn`, `local_attn`, `mla`, `attn_moe`, `rg`, `rwkv` and
-`cross_attn`.
+`cross_attn`, and the port's own `mla_moe` (MLA and a MoE FFN:
+kimi-k2-instruct).
 
 `Transformer` is an `nn.Module` holding one `Block` per block of each
 layer: a segment is `count` layers of one superblock of block kinds (one
@@ -16,11 +17,11 @@ reference's nested layout, one dict per block of the superblock, each leaf
 stacked over the segment's layers: `{"k", "v"}` (count, B, Hkv, S, hd) for
 attention and `attn_moe` (S = min(window, S_max) for `local_attn`),
 `{"ckv"}` (count, B, S, kv_lora) and `{"kr"}` (count, B, S, rope) for
-`mla`, `{"state"}` (count, B, dr) fp32 and `{"conv"}` (count, B, 3, dr)
-for `rg`, `{"state"}` (count, B, H, hd, hd) fp32, `{"shift", "shift_c"}`
+`mla` and `mla_moe`, `{"state"}` (count, B, dr) fp32 and `{"conv"}`
+(count, B, 3, dr) for `rg`, `{"state"}` (count, B, H, hd, hd) fp32, `{"shift", "shift_c"}`
 (count, B, D) for `rwkv`, and the vision keys and values `{"k", "v"}`
 (count, B, Hkv, vision_seq, hd) for `cross_attn`, which never grow.
-`forward`'s aux is the sum of the `attn_moe` blocks' load-balance losses
+`forward`'s aux is the sum of the MoE blocks' load-balance losses
 (0 without one), as the reference's scan sums them. A config with
 `embed_inputs=False` (hubert's stub front end) has no `embed`: its inputs
 are (B, S, D) embeddings.
@@ -40,7 +41,7 @@ from repro_torch.device import resolve_device
 
 from . import layers as L
 from . import partitioning as PT
-from .config import ModelConfig, _rg_width
+from .config import ModelConfig, RoutedMoEConfig, _rg_width
 
 
 def _norm_scale(cfg: ModelConfig, device) -> nn.Parameter:
@@ -51,11 +52,12 @@ def _norm_scale(cfg: ModelConfig, device) -> nn.Parameter:
 class Block(nn.Module):
     """One pre-norm residual block, the reference's `_block_apply`: a
     mixer, then a feed-forward. The mixer is attention for `attn`,
-    `local_attn` (windowed) and `attn_moe`, MLA for `mla`, the recurrent
-    block for `rg`, the RWKV6 time-mix for `rwkv` and gated
+    `local_attn` (windowed) and `attn_moe`, MLA for `mla` and `mla_moe`,
+    the recurrent block for `rg`, the RWKV6 time-mix for `rwkv` and gated
     cross-attention for `cross_attn`; the feed-forward is the MoE FFN for
-    `attn_moe`, the RWKV channel-mix for `rwkv`, and SwiGLU for every
-    other kind (scaled by tanh(gate_ffn) for `cross_attn`)."""
+    `attn_moe` and `mla_moe`, the RWKV channel-mix for `rwkv`, and SwiGLU
+    for every other kind (scaled by tanh(gate_ffn) for `cross_attn`).
+    `mla_moe` has no device-mesh path (`moe_ffn` raises)."""
 
     def __init__(self, kind: str, cfg: ModelConfig,
                  gen: torch.Generator | None, device: torch.device):
@@ -64,7 +66,7 @@ class Block(nn.Module):
         self.norm1 = _norm_scale(cfg, device)
         if kind == "rg":
             self.rg = L.RG(cfg, gen, device)
-        elif kind == "mla":
+        elif kind in ("mla", "mla_moe"):
             self.mla = L.MLA(cfg, gen, device)
         elif kind == "rwkv":
             self.rwkv = L.RWKV(cfg, gen, device)
@@ -73,7 +75,7 @@ class Block(nn.Module):
         else:
             self.attn = L.Attention(cfg, gen, device)
         self.norm2 = _norm_scale(cfg, device)
-        if kind == "attn_moe":
+        if kind in ("attn_moe", "mla_moe"):
             self.moe = L.MoE(cfg, gen, device)
         elif kind == "rwkv":
             self.cmix = L.RWKVChannel(cfg, gen, device)
@@ -83,16 +85,17 @@ class Block(nn.Module):
     def forward(self, x, cfg: ModelConfig, mode: str, cache, pos,
                 vision=None, mesh=None):
         """-> (x, new_cache, aux): aux is the MoE load-balance loss of an
-        `attn_moe` block, None for the other kinds. `vision` (B, Sv, D)
-        feeds a `cross_attn` block's keys and values in train and prefill
-        mode; the other kinds ignore it."""
+        `attn_moe` block, and of an `mla_moe` block in train mode; None
+        otherwise. `vision`
+        (B, Sv, D) feeds a `cross_attn` block's keys and values in train
+        and prefill mode; the other kinds ignore it."""
         # with seq_parallel the residual stream's sequence is split over
         # `model`: gathered before the mixer and the FFN (Megatron SP)
         h = L.cst(L.rms_norm(x, self.norm1, cfg.rms_eps), mesh, "B", None,
                   None)
         if self.kind == "rg":
             h, new_cache = L.rg_block(self.rg, h, mode, cache, mesh)
-        elif self.kind == "mla":
+        elif self.kind in ("mla", "mla_moe"):
             h, new_cache = L.mla_block(self.mla, h, cfg, mode, cache, pos,
                                        mesh)
         elif self.kind == "rwkv":
@@ -108,8 +111,9 @@ class Block(nn.Module):
         h = L.cst(L.rms_norm(x, self.norm2, cfg.rms_eps), mesh, "B", None,
                   None)
         aux = None
-        if self.kind == "attn_moe":
-            h, aux = L.moe_ffn(self.moe, h, cfg, mesh)
+        if self.kind in ("attn_moe", "mla_moe"):
+            h, aux = L.moe_ffn(self.moe, h, cfg, mesh,
+                               train=mode == "train")
         elif self.kind == "rwkv":
             # decode writes the channel-mix's shift into the same cache
             h, c2 = L.rwkv_channel_mix(self.cmix, h, mode, cache, mesh)
@@ -273,7 +277,7 @@ class Transformer(nn.Module):
 
 def _superblock(x, blocks, cfg: ModelConfig, vision, mesh=None, sp=None):
     """One superblock in train mode: its blocks in order. Returns x and
-    the sum of its blocks' aux losses (None without an `attn_moe`)."""
+    the sum of its blocks' aux losses (None without a MoE block)."""
     aux = None
     for block in blocks:
         x, _, aux_b = block(x, cfg, "train", None, None, vision, mesh)
@@ -428,7 +432,7 @@ def _block_cache_spec(kind: str, cfg: ModelConfig, B: int,
         dr = _rg_width(cfg.d_model)
         return {"state": ((B, dr), torch.float32),
                 "conv": ((B, 3, dr), torch.bfloat16)}
-    if kind == "mla":
+    if kind in ("mla", "mla_moe"):
         c = cfg.mla
         return {"ckv": ((B, S_max, c.kv_lora_rank), torch.bfloat16),
                 "kr": ((B, S_max, c.qk_rope_head_dim), torch.bfloat16)}
@@ -465,8 +469,8 @@ def pad_cache_to(cache, cfg: ModelConfig, S_max: int):
     """Right-pad a prefill cache's sequence axis to S_max so decode can
     write into it, by block kind: the `k` / `v` leaves of `attn` and
     `attn_moe` (and of `local_attn` without a window; axis 3) and the
-    `ckv` / `kr` latent leaves of `mla` (axis 2). Window caches (the
-    window long), recurrent states (`rg`, `rwkv`) and a `cross_attn`
+    `ckv` / `kr` latent leaves of `mla` and `mla_moe` (axis 2). Window
+    caches (the window long), recurrent states (`rg`, `rwkv`) and a `cross_attn`
     block's vision keys and values are fixed-size and stay as they are.
     (The reference pads by leaf name, vision keys included: decode then
     attends to zero keys, each unmasked at score 0, which dilutes its
@@ -487,7 +491,7 @@ def pad_cache_to(cache, cfg: ModelConfig, S_max: int):
         if kind in ("attn", "attn_moe") or (kind == "local_attn"
                                             and not cfg.window):
             return 3
-        return 2 if kind == "mla" else None
+        return 2 if kind in ("mla", "mla_moe") else None
     out = []
     for seg, seg_cache in zip(cfg.segments, cache, strict=True):
         blocks = []
@@ -521,7 +525,7 @@ def _block_names(cfg: ModelConfig, kind: str) -> list[tuple[str, ...]]:
     attn = _ATTN + (_BIAS if cfg.qkv_bias else ())
     if kind == "rg":
         mixer = [("rg", n) for n in _RG]
-    elif kind == "mla":
+    elif kind in ("mla", "mla_moe"):
         mixer = [("mla", n) for n in _MLA]
     elif kind == "rwkv":
         mixer = [("rwkv", n) for n in _RWKV]
@@ -529,8 +533,10 @@ def _block_names(cfg: ModelConfig, kind: str) -> list[tuple[str, ...]]:
         mixer = [("xattn", n) for n in attn + _GATES]
     else:
         mixer = [("attn", n) for n in attn]
-    if kind == "attn_moe":
+    if kind in ("attn_moe", "mla_moe"):
         ffn = [("moe", n) for n in _MOE]
+        if isinstance(cfg.moe, RoutedMoEConfig):
+            ffn.append(("moe", "correction_bias"))
         if cfg.moe.num_shared_experts:
             ffn += [("moe", "shared", n) for n in _MLP]
     elif kind == "rwkv":
@@ -625,8 +631,8 @@ def params_from_jax(cfg: ModelConfig, tree: dict,
     layout (`repro.models.init_params`, or a restored checkpoint). Leaves
     may be numpy arrays (bf16 given as fp32 values or uint16 bit views)
     or tensors; each is cast to the parameter's dtype (bf16, or fp32 for
-    the rg blocks' `lam`, the routers, rwkv's `decay_base` and `bonus`
-    and the cross-attention gates)."""
+    the rg blocks' `lam`, the routers and their correction biases,
+    rwkv's `decay_base` and `bonus` and the cross-attention gates)."""
     model = Transformer(cfg, None, device)
     for param, leaf, path in param_leaves(model, tree):
         _copy(param.data, leaf, path)

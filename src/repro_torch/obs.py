@@ -47,13 +47,15 @@ The spans of the model path, and what they carry:
 | `forward` (root) | `Transformer.forward` | `mode`, `B`, `S` |
 | `attention` | `layers.flash_attention` (a mesh's: each shard's call) | `route`: `kernel`, `decode` (the card's), `plain`, `decode_plain` (the CPU's), `blockwise` |
 | `moe` | `layers.moe_ffn` | |
-| `moe.route` | the fp32 router, softmax and top-k | |
-| `moe.dispatch` | top-C tokens per (row, expert), gathered into slots | `slots` (experts x rows x C), `kept` (slots filled, a device count) |
-| `moe.experts` | the three expert matmuls and SiLU x up | |
+| `moe.route` | the fp32 router, softmax (or sigmoid) and top-k; the dropless MoE's held-expert counts | |
+| `moe.shared` | a `RoutedMoEConfig`'s shared expert | |
+| `moe.dispatch` | top-C tokens per (row, expert), gathered into slots; the dropless MoE's held rows sorted by expert and gathered | `slots` (experts x rows x C), `kept` (slots filled, a device count); dropless: `held` (experts held), `rows` (held (token, expert) pairs), `rows_max` (those of the most loaded held expert) |
+| `moe.experts` | the three expert matmuls and SiLU x up (dropless: grouped GEMMs) | |
 | `moe.combine` | the weighting and each token's K expert rows added | |
 | `head` | `Transformer._forward`: the final norm and unembedding | |
 
-`moe`'s four children cover it but for the load-balance loss.
+`moe`'s children cover it but for the load-balance loss (and, in the
+dropless MoE, the shared expert's add).
 """
 from __future__ import annotations
 
